@@ -49,6 +49,39 @@ __global__ void xwarp_fwd_kernel(const float* __restrict__ pat,
                        __fmul_rn(row[i1], f));
 }
 
+// Pattern warp backward (kernel K2 bwd), the adjoint to disp only.
+//
+// Replaces: depthinspace_tpu/ops/pallas/warp_kernel.py::_xwarp_vjp_bwd (the
+// Pallas body _xwarp_grad_kernel). CPU truth:
+// losses/photometric.py::_xwarp_bwd.
+//
+//   grad_disp(p) = -(pat[v, i1] - pat[v, i0]) * inside * g(p),
+//   inside = 0 < u - disp < W-1 (strict: no gradient where the clamp holds)
+//
+// with x0, i0, i1 as in the forward, and no clip of the disparity (the CPU
+// truth; the TPU kernel clips its shift index to [0, max_disp]). The same
+// layout and design as the forward: one thread per pixel, coalesced disp,
+// g and output, two pattern reads from one row. Bound by memory.
+__global__ void xwarp_bwd_kernel(const float* __restrict__ pat,
+                                 long long pat_batch_stride,
+                                 const float* __restrict__ disp,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ grad, int H, int W) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= W) return;
+  const int v = blockIdx.y;
+  const long long n = blockIdx.z;
+  const long long idx = (n * H + v) * W + u;
+
+  const float x = __fsub_rn((float)u, disp[idx]);
+  const float xc = fminf(fmaxf(x, 0.0f), (float)(W - 1));
+  const int i0 = (int)floorf(xc);
+  const int i1 = min(i0 + 1, W - 1);
+  const float* row = pat + n * pat_batch_stride + (long long)v * W;
+  const bool inside = x > 0.0f && x < (float)(W - 1);
+  grad[idx] = inside ? __fmul_rn(-__fsub_rn(row[i1], row[i0]), g[idx]) : 0.0f;
+}
+
 }  // namespace
 
 // pat: contiguous (H, W) with pat_batch_stride 0, or (N, H, W) with stride
@@ -60,5 +93,17 @@ extern "C" int dis_xwarp_fwd(const float* pat, long long pat_batch_stride,
   const dim3 grid((W + threads - 1) / threads, H, N);
   xwarp_fwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       pat, pat_batch_stride, disp, out, H, W);
+  return (int)cudaGetLastError();
+}
+
+// pat as for dis_xwarp_fwd; disp, g, grad: contiguous (N, H, W) float32.
+// Returns cudaGetLastError().
+extern "C" int dis_xwarp_bwd(const float* pat, long long pat_batch_stride,
+                             const float* disp, const float* g, float* grad,
+                             int N, int H, int W, void* stream) {
+  const int threads = 128;
+  const dim3 grid((W + threads - 1) / threads, H, N);
+  xwarp_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      pat, pat_batch_stride, disp, g, grad, H, W);
   return (int)cudaGetLastError();
 }

@@ -18,11 +18,10 @@ that the forward path needs, without cv2 or h5py:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 
 from .batch import Batch
+from .settings import Settings
 
 
 def _blur3_reflect101(x: np.ndarray, sigma: float) -> np.ndarray:
@@ -50,29 +49,12 @@ def make_dot_pattern(height: int, width: int, n_dots: int = None,
     return np.stack([pat] * 3, axis=-1)
 
 
-@dataclass
-class SyntheticSettings:
-    """The fields of ``depthinspace_tpu.data.settings.Settings`` that the
-    forward path reads."""
-    imsize: tuple
-    pattern: np.ndarray          # (H, W, 3) float32 in [0, 1]
-    baseline: float
-    K: np.ndarray                # (3, 3) float32
-
-    @property
-    def focal_length(self) -> float:
-        return float(self.K[0, 0])
-
-    def pattern_gray(self) -> np.ndarray:
-        return self.pattern.mean(axis=2).astype(np.float32)
-
-
 def make_settings(height: int = 512, width: int = 432, focal: float = 435.2,
-                  baseline: float = 0.025, seed: int = 7) -> SyntheticSettings:
+                  baseline: float = 0.025, seed: int = 7) -> Settings:
     """The camera and pattern of bench.py::_settings at any image size."""
     K = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0],
                   [0, 0, 1]], np.float32)
-    return SyntheticSettings(imsize=(height, width),
+    return Settings(imsize=(height, width),
                              pattern=make_dot_pattern(height, width, seed=seed),
                              baseline=baseline, K=K)
 

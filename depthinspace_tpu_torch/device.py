@@ -1,4 +1,4 @@
-"""Device selection helpers."""
+"""Device selection: the port runs on the card unless asked for the CPU."""
 
 from __future__ import annotations
 
@@ -6,16 +6,14 @@ import torch
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises when PyTorch sees no CUDA card.
-
-    Measurement and smoke paths call this instead of falling back to the CPU,
-    so a run without a card fails instead of reporting CPU numbers."""
+    """The first CUDA device; raises when PyTorch sees no CUDA card, so a
+    run without a card fails instead of quietly running on the CPU."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
     return torch.device("cuda", 0)
 
 
-def default_device() -> torch.device:
-    """CUDA when a card is present, else the CPU (tests, tooling)."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card (require_cuda).
+    The CPU is used only when asked for, as ``device="cpu"``."""
+    return require_cuda() if device is None else torch.device(device)

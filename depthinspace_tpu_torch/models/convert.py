@@ -1,5 +1,5 @@
 """Weights of the flax ``DispNet`` (``depthinspace_tpu/models/dispnet.py``)
-as a ``state_dict`` for this package's :class:`DispNet`.
+as a ``state_dict`` for this package's :class:`DispNet`, and back.
 
 The flax tree, with modules named in creation order, holds 64 leaves:
 
@@ -11,6 +11,8 @@ The flax tree, with modules named in creation order, holds 64 leaves:
 Conv kernels are HWIO and become OIHW. ConvTranspose kernels are
 (kh, kw, in, out) and become torch's (in, out, kh, kw) after a spatial flip
 (a flax "SAME" transposed conv correlates with the unflipped kernel).
+``flax_tree_from_dispnet_state_dict`` undoes both, so the port can write
+``net_%04d.params`` files that the JAX package reads.
 """
 
 from __future__ import annotations
@@ -41,26 +43,53 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+def _flax_names():
+    """(state_dict prefix, flax path, is a transposed conv) for each layer,
+    in flax's creation order (the order of its tree and of its files)."""
+    for i in range(7):
+        yield f"downs.{i}.conv0", (f"_Down_{i}", "Conv_0"), False
+        yield f"downs.{i}.conv1", (f"_Down_{i}", "Conv_1"), False
+    for i in range(7):
+        yield f"ups.{i}.conv", (f"_Up_{i}", "ConvTranspose_0"), True
+        yield f"iconvs.{i}", (f"Conv_{i}",), False
+        if i >= 3:
+            yield (f"heads.{i - 3}.conv", (f"SigmoidAffineHead_{i - 3}",
+                                           "Conv_0"), False)
+
+
 def dispnet_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """``tree``: the flax variables of DispNet as nested dicts of numpy
     arrays, with or without the top-level "params" key."""
     p = tree["params"] if "params" in tree else tree
     sd: dict[str, torch.Tensor] = {}
-
-    def put(prefix, leaf, convert):
-        sd[prefix + ".weight"] = convert(leaf["kernel"])
+    for prefix, path, transposed in _flax_names():
+        leaf = p
+        for name in path:
+            leaf = leaf[name]
+        sd[prefix + ".weight"] = (_conv_transpose if transposed
+                                  else _conv)(leaf["kernel"])
         sd[prefix + ".bias"] = _bias(leaf["bias"])
-
-    for i in range(7):
-        down = p[f"_Down_{i}"]
-        put(f"downs.{i}.conv0", down["Conv_0"], _conv)
-        put(f"downs.{i}.conv1", down["Conv_1"], _conv)
-        put(f"ups.{i}.conv", p[f"_Up_{i}"]["ConvTranspose_0"], _conv_transpose)
-        put(f"iconvs.{i}", p[f"Conv_{i}"], _conv)
-    for i in range(4):
-        put(f"heads.{i}.conv", p[f"SigmoidAffineHead_{i}"]["Conv_0"], _conv)
     n_leaves = _count_leaves(p)
     if n_leaves != len(sd):
         raise ValueError(f"flax tree has {n_leaves} leaves, the port's "
                          f"DispNet takes {len(sd)}")
     return sd
+
+
+def flax_tree_from_dispnet_state_dict(sd: Mapping) -> dict:
+    """The inverse of :func:`dispnet_state_dict_from_flax`: the flax
+    variables {"params": {...}} as nested dicts of float32 numpy arrays."""
+    params: dict = {}
+    for prefix, path, transposed in _flax_names():
+        w = sd[prefix + ".weight"].detach().cpu().numpy().astype(np.float32)
+        if transposed:        # (in, out, kh, kw) -> flipped (kh, kw, in, out)
+            k = w.transpose(2, 3, 0, 1)[::-1, ::-1]
+        else:                 # OIHW -> HWIO
+            k = w.transpose(2, 3, 1, 0)
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node["kernel"] = np.ascontiguousarray(k)
+        node["bias"] = sd[prefix + ".bias"].detach().cpu().numpy().astype(
+            np.float32)
+    return {"params": params}

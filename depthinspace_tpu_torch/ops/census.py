@@ -1,12 +1,14 @@
 """Census-SAD photometric dissimilarity (port of
-``depthinspace_tpu/ops/census.py::census_sad``, forward).
+``depthinspace_tpu/ops/census.py::census_sad``).
 
   d_es(p, o) = es(p + o) - es(p)  over the BxB window (replicate padding)
   h(d)       = 0.5 * (1 + d / sqrt(d^2 + eps))
   out(p)     = sum_o |h(d_es(p,o)) - h(d_ta(p,o))| / B^2
 
-``census_sad`` runs kernel K1 (``csrc/census_sad.cu``) on a CUDA tensor and
-``census_sad_plain`` on a CPU tensor.
+The gradient goes to ``es`` only (``ta``, the IR image, gets none), as in
+the JAX custom VJP. ``census_sad`` runs kernels K1 and K1 bwd
+(``csrc/census_sad.cu``) on a CUDA tensor and ``census_sad_plain`` and
+``census_sad_bwd_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ def _soft_heaviside(d: torch.Tensor, eps: float) -> torch.Tensor:
     return 0.5 * (1.0 + d * torch.rsqrt(d * d + eps))
 
 
+def _pad_edge(x: torch.Tensor, p: int) -> torch.Tensor:
+    return F.pad(x[:, None], (p, p, p, p), mode="replicate")[:, 0]
+
+
 def census_sad_plain(es: torch.Tensor, ta: torch.Tensor,
                      block_size: int = 9, eps: float = 0.5) -> torch.Tensor:
     """Plain PyTorch version: B^2 shifted slices of the edge-padded inputs,
@@ -28,8 +34,7 @@ def census_sad_plain(es: torch.Tensor, ta: torch.Tensor,
     them. es, ta: (N, H, W)."""
     N, H, W = es.shape
     p = block_size // 2
-    es_pad = F.pad(es[:, None], (p, p, p, p), mode="replicate")[:, 0]
-    ta_pad = F.pad(ta[:, None], (p, p, p, p), mode="replicate")[:, 0]
+    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
     acc = torch.zeros_like(es)
     for dy in range(block_size):
         for dx in range(block_size):
@@ -39,10 +44,71 @@ def census_sad_plain(es: torch.Tensor, ta: torch.Tensor,
     return acc / block_size ** 2
 
 
+def _unpad_edge_adjoint(g_pad: torch.Tensor, p: int) -> torch.Tensor:
+    """Adjoint of replicate padding: fold the margins onto the border."""
+    core = g_pad[:, p:-p, :].clone()
+    core[:, 0, :] += g_pad[:, :p, :].sum(dim=1)
+    core[:, -1, :] += g_pad[:, -p:, :].sum(dim=1)
+    out = core[:, :, p:-p].clone()
+    out[:, :, 0] += core[:, :, :p].sum(dim=2)
+    out[:, :, -1] += core[:, :, -p:].sum(dim=2)
+    return out
+
+
+def census_sad_bwd_plain(es: torch.Tensor, ta: torch.Tensor, g: torch.Tensor,
+                         block_size: int = 9,
+                         eps: float = 0.5) -> torch.Tensor:
+    """Plain version of K1 bwd, the O(1)-memory scan of
+    ops/census.py::_census_bwd: the gradient of <g, census_sad(es, ta)>
+    with respect to es. es, ta, g: (N, H, W)."""
+    N, H, W = es.shape
+    p = block_size // 2
+    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
+    inv_b2 = 1.0 / block_size ** 2
+    grad_pad = torch.zeros_like(es_pad)
+    center = torch.zeros_like(es)
+    for dy in range(block_size):
+        for dx in range(block_size):
+            d_es = es_pad[:, dy:dy + H, dx:dx + W] - es
+            h_es = _soft_heaviside(d_es, eps)
+            h_ta = _soft_heaviside(ta_pad[:, dy:dy + H, dx:dx + W] - ta, eps)
+            q = d_es * d_es + eps
+            dh = 0.5 * eps * torch.rsqrt(q) / q
+            delta = torch.sign(h_es - h_ta) * dh * g * inv_b2
+            grad_pad[:, dy:dy + H, dx:dx + W] += delta
+            center = center + delta
+    return _unpad_edge_adjoint(grad_pad, p) - center
+
+
+class CensusSAD(torch.autograd.Function):
+    """K1 and K1 bwd on CUDA tensors, their plain versions on CPU tensors.
+    Saves only the inputs; the backward recomputes, as the JAX VJP does."""
+
+    @staticmethod
+    def forward(ctx, es, ta, block_size: int, eps: float):
+        ctx.save_for_backward(es, ta)
+        ctx.block_size, ctx.eps = block_size, eps
+        if es.device.type == "cpu":
+            return census_sad_plain(es, ta, block_size, eps)
+        return kernels.census_sad_fwd(es.contiguous(), ta.contiguous(),
+                                      block_size, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        es, ta = ctx.saved_tensors
+        if es.device.type == "cpu":
+            grad = census_sad_bwd_plain(es, ta, g, ctx.block_size, ctx.eps)
+        else:
+            grad = kernels.census_sad_bwd(es.contiguous(), ta.contiguous(),
+                                          g.contiguous(), ctx.block_size,
+                                          ctx.eps)
+        return grad, None, None, None
+
+
 def census_sad(es: torch.Tensor, ta: torch.Tensor, block_size: int = 9,
                eps: float = 0.5) -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
-    if es.device.type == "cpu":
-        return census_sad_plain(es, ta, block_size, eps)
-    return kernels.census_sad_fwd(es.contiguous(), ta.contiguous(),
-                                  block_size, eps)
+    """K1 on a CUDA tensor, the plain version on a CPU tensor; differentiable
+    with respect to es."""
+    return CensusSAD.apply(es, ta, block_size, eps)

@@ -10,9 +10,9 @@ source is rebuilt and an unchanged one is not.
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its output with ``torch.empty``, launches on the
 current stream, raises if ``cudaGetLastError()`` is nonzero, and adds one to
-its entry of :data:`launches`. The wrappers are forward only: given a tensor
-that requires grad they raise, because the backward kernels come with the
-training slice. Nothing here falls back to PyTorch.
+its entry of :data:`launches`. Each forward kernel has a backward kernel
+beside it; ``ops/census.py`` and ``ops/resample.py`` pair them in
+``torch.autograd.Function``s. Nothing here falls back to PyTorch.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each kernel since the last reset_launches().
-launches = {"census_sad_fwd": 0, "xwarp_fwd": 0, "warp2d_fwd": 0}
+launches = {"census_sad_fwd": 0, "xwarp_fwd": 0, "warp2d_fwd": 0,
+            "census_sad_bwd": 0, "xwarp_bwd": 0, "warp2d_bwd": 0}
 
 _lib = None
 
@@ -100,6 +101,14 @@ def library() -> ctypes.CDLL:
         lib.dis_xwarp_fwd.restype = i32
         lib.dis_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.dis_warp2d_fwd.restype = i32
+        lib.dis_census_sad_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                           f32, f32, f32, ptr]
+        lib.dis_census_sad_bwd.restype = i32
+        lib.dis_xwarp_bwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32,
+                                      ptr]
+        lib.dis_xwarp_bwd.restype = i32
+        lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.dis_warp2d_bwd.restype = i32
         lib.dis_error_string.argtypes = [i32]
         lib.dis_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -115,13 +124,6 @@ def _check(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _forward_only(kernel: str, *tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{kernel}: forward only; the backward kernel comes with the "
-            "training slice")
 
 
 def _same_device(kernel: str, *tensors: torch.Tensor) -> None:
@@ -146,68 +148,130 @@ def _launch(kernel: str, fn, *args, device: torch.device) -> None:
     launches[kernel] += 1
 
 
+def _census_shapes(kernel: str, es: torch.Tensor, ta: torch.Tensor,
+                   block_size: int) -> tuple[int, int, int]:
+    _check("es", es, 3)
+    _check("ta", ta, 3)
+    _same_device(kernel, es, ta)
+    if es.shape != ta.shape:
+        raise ValueError(f"{kernel}: shapes {tuple(es.shape)} and "
+                         f"{tuple(ta.shape)} differ")
+    if block_size != 9:
+        raise ValueError(f"{kernel}: the kernel is built for 9x9 blocks")
+    N, H, W = es.shape
+    _grid_fits(kernel, N, 1)
+    return N, H, W
+
+
 def census_sad_fwd(es: torch.Tensor, ta: torch.Tensor,
                    block_size: int = 9, eps: float = 0.5) -> torch.Tensor:
     """K1: es, ta (N, H, W) float32 -> (N, H, W)."""
-    _check("es", es, 3)
-    _check("ta", ta, 3)
-    _same_device("census_sad_fwd", es, ta)
-    if es.shape != ta.shape:
-        raise ValueError(f"census_sad_fwd: shapes {tuple(es.shape)} and "
-                         f"{tuple(ta.shape)} differ")
-    if block_size != 9:
-        raise ValueError("census_sad_fwd: the kernel is built for 9x9 blocks")
-    N, H, W = es.shape
-    _grid_fits("census_sad_fwd", N, 1)
-    _forward_only("census_sad_fwd", es, ta)
+    N, H, W = _census_shapes("census_sad_fwd", es, ta, block_size)
     out = torch.empty_like(es)
     if out.numel():
-        lib = library()
-        _launch("census_sad_fwd", lib.dis_census_sad_fwd, es.data_ptr(),
+        _launch("census_sad_fwd", library().dis_census_sad_fwd, es.data_ptr(),
                 ta.data_ptr(), out.data_ptr(), N, H, W, float(eps),
                 device=es.device)
     return out
 
 
-def xwarp_fwd(pattern: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
-    """K2: pattern (H, W) or (N, H, W), disp (N, H, W) -> (N, H, W)."""
+def census_sad_bwd(es: torch.Tensor, ta: torch.Tensor, g: torch.Tensor,
+                   block_size: int = 9, eps: float = 0.5) -> torch.Tensor:
+    """K1 bwd: es, ta, g (N, H, W) float32 -> d<g, census_sad(es, ta)>/d es."""
+    N, H, W = _census_shapes("census_sad_bwd", es, ta, block_size)
+    _check("g", g, 3)
+    _same_device("census_sad_bwd", es, g)
+    if g.shape != es.shape:
+        raise ValueError(f"census_sad_bwd: g {tuple(g.shape)} does not fit "
+                         f"es {tuple(es.shape)}")
+    grad = torch.empty_like(es)
+    if grad.numel():
+        _launch("census_sad_bwd", library().dis_census_sad_bwd, es.data_ptr(),
+                ta.data_ptr(), g.data_ptr(), grad.data_ptr(), N, H, W,
+                float(eps), float(0.5 * eps), float(1.0 / block_size ** 2),
+                device=es.device)
+    return grad
+
+
+def _xwarp_shapes(kernel: str, pattern: torch.Tensor,
+                  disp: torch.Tensor) -> tuple[int, int, int, int]:
+    """Returns (N, H, W, the pattern's batch stride)."""
     if pattern.dim() not in (2, 3):
-        raise ValueError(f"xwarp_fwd: pattern must be (H, W) or (N, H, W), "
+        raise ValueError(f"{kernel}: pattern must be (H, W) or (N, H, W), "
                          f"got {tuple(pattern.shape)}")
     _check("pattern", pattern, pattern.dim())
     _check("disp", disp, 3)
-    _same_device("xwarp_fwd", pattern, disp)
+    _same_device(kernel, pattern, disp)
     N, H, W = disp.shape
     if pattern.shape[-2:] != (H, W) or (pattern.dim() == 3
                                         and pattern.shape[0] != N):
-        raise ValueError(f"xwarp_fwd: pattern {tuple(pattern.shape)} does "
+        raise ValueError(f"{kernel}: pattern {tuple(pattern.shape)} does "
                          f"not fit disp {tuple(disp.shape)}")
-    _grid_fits("xwarp_fwd", N, H)
-    _forward_only("xwarp_fwd", pattern, disp)
-    stride = 0 if pattern.dim() == 2 else H * W
+    _grid_fits(kernel, N, H)
+    return N, H, W, 0 if pattern.dim() == 2 else H * W
+
+
+def xwarp_fwd(pattern: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+    """K2: pattern (H, W) or (N, H, W), disp (N, H, W) -> (N, H, W)."""
+    N, H, W, stride = _xwarp_shapes("xwarp_fwd", pattern, disp)
     out = torch.empty_like(disp)
     if out.numel():
-        lib = library()
-        _launch("xwarp_fwd", lib.dis_xwarp_fwd, pattern.data_ptr(), stride,
-                disp.data_ptr(), out.data_ptr(), N, H, W, device=disp.device)
+        _launch("xwarp_fwd", library().dis_xwarp_fwd, pattern.data_ptr(),
+                stride, disp.data_ptr(), out.data_ptr(), N, H, W,
+                device=disp.device)
     return out
+
+
+def xwarp_bwd(pattern: torch.Tensor, disp: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """K2 bwd: pattern (H, W) or (N, H, W), disp, g (N, H, W) -> grad wrt
+    disp (N, H, W); the pattern gets none."""
+    N, H, W, stride = _xwarp_shapes("xwarp_bwd", pattern, disp)
+    _check("g", g, 3)
+    _same_device("xwarp_bwd", disp, g)
+    if g.shape != disp.shape:
+        raise ValueError(f"xwarp_bwd: g {tuple(g.shape)} does not fit disp "
+                         f"{tuple(disp.shape)}")
+    grad = torch.empty_like(disp)
+    if grad.numel():
+        _launch("xwarp_bwd", library().dis_xwarp_bwd, pattern.data_ptr(),
+                stride, disp.data_ptr(), g.data_ptr(), grad.data_ptr(), N, H,
+                W, device=disp.device)
+    return grad
+
+
+def _warp2d_shapes(kernel: str, name: str, x: torch.Tensor,
+                   flow: torch.Tensor) -> tuple[int, int, int, int]:
+    """x is the image (forward) or the output gradient (backward)."""
+    _check(name, x, 4)
+    _check("flow", flow, 4)
+    _same_device(kernel, x, flow)
+    M, H, W, C = x.shape
+    if tuple(flow.shape) != (M, H, W, 2):
+        raise ValueError(f"{kernel}: flow {tuple(flow.shape)} does not fit "
+                         f"{name} {tuple(x.shape)}")
+    _grid_fits(kernel, M, H)
+    return M, H, W, C
 
 
 def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """K3: img (M, H, W, C), flow (M, H, W, 2) float32 -> (M, H, W, C)."""
-    _check("img", img, 4)
-    _check("flow", flow, 4)
-    _same_device("warp2d_fwd", img, flow)
-    M, H, W, C = img.shape
-    if tuple(flow.shape) != (M, H, W, 2):
-        raise ValueError(f"warp2d_fwd: flow {tuple(flow.shape)} does not fit "
-                         f"img {tuple(img.shape)}")
-    _grid_fits("warp2d_fwd", M, H)
-    _forward_only("warp2d_fwd", img, flow)
+    M, H, W, C = _warp2d_shapes("warp2d_fwd", "img", img, flow)
     out = torch.empty_like(img)
     if out.numel():
-        lib = library()
-        _launch("warp2d_fwd", lib.dis_warp2d_fwd, img.data_ptr(),
+        _launch("warp2d_fwd", library().dis_warp2d_fwd, img.data_ptr(),
                 flow.data_ptr(), out.data_ptr(), M, H, W, C,
                 device=img.device)
     return out
+
+
+def warp2d_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K3 bwd: flow (M, H, W, 2), g (M, H, W, C) float32 -> grad wrt img
+    (M, H, W, C); the flow gets none. Float atomics: the bits of a sum of
+    three or more contributions vary from run to run."""
+    M, H, W, C = _warp2d_shapes("warp2d_bwd", "g", g, flow)
+    grad = torch.empty_like(g)
+    if grad.numel():
+        _launch("warp2d_bwd", library().dis_warp2d_bwd, flow.data_ptr(),
+                g.data_ptr(), grad.data_ptr(), M, H, W, C, device=g.device)
+    return grad

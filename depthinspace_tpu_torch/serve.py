@@ -9,12 +9,10 @@ the JAX server does. Images cross to the device as uint16 fixed point
 
 from __future__ import annotations
 
-from pathlib import Path
-
 import numpy as np
 import torch
 
-from .device import default_device
+from .device import resolve_device
 from .models import DispNet, dispnet_state_dict_from_flax
 from .ops import lcn
 
@@ -27,14 +25,15 @@ def _bucket(n: int, max_batch: int) -> int:
 
 
 class DisparityServer:
-    """>>> srv = DisparityServer.from_checkpoint("dispnet.pt")
+    """>>> srv = DisparityServer.from_net_params("net_0007.params")
     >>> disp = srv.infer(images)     # (n, H, W) float32 in [0, 1] -> (n, H, W)
-    """
+
+    ``device=None`` is the card (raises without one); the CPU only when
+    asked for with ``device="cpu"``."""
 
     def __init__(self, model: DispNet, imsize=(512, 432), max_batch: int = 32,
                  lcn_radius: int = 5, device=None):
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = resolve_device(device)
         self.imsize = tuple(imsize)
         self.max_batch = int(max_batch)
         self.lcn_radius = lcn_radius
@@ -48,15 +47,13 @@ class DisparityServer:
         return cls(model, **kw)
 
     @classmethod
-    def from_checkpoint(cls, path, max_disp: float = 128.0, **kw):
-        """From a file written by :meth:`save_checkpoint`."""
+    def from_net_params(cls, path, max_disp: float = 128.0, **kw):
+        """From a ``net_%04d.params`` file (flax msgpack) written by either
+        package's trainer."""
+        from .train.checkpoint import load_net_params
         model = DispNet(max_disp=max_disp)
-        model.load_state_dict(torch.load(Path(path), map_location="cpu",
-                                         weights_only=True))
+        model.load_state_dict(load_net_params(path))
         return cls(model, **kw)
-
-    def save_checkpoint(self, path) -> None:
-        torch.save(self.model.state_dict(), Path(path))
 
     def warmup(self, buckets=None) -> None:
         """Run every bucket once ahead of traffic (cuDNN picks its

@@ -1,3 +1,5 @@
-from .objective import (LossContext, make_loss_context, preprocess_images,
-                        rigid_flow_device, sf_losses)
-from .steps import make_sf_eval_step
+from .objective import (AugmentDraws, LossContext, augment_batch_device,
+                        draw_augment, make_loss_context, prepare_batch,
+                        preprocess_images, rigid_flow_device, sf_losses)
+from .state import TrainState
+from .steps import chunk_batch, make_sf_eval_step, make_sf_train_step

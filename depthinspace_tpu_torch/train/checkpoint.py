@@ -1,0 +1,108 @@
+"""Checkpoints, port of ``depthinspace_tpu/train/checkpoint.py``, with the
+same three artifacts in the experiment directory:
+
+1. ``state/``: a rolling full training state (model, Adam, step, the step's
+   generator, the host's numpy and python RNG, {epoch, min_err}), one
+   ``<epoch>/state.pt`` file per saved epoch in this package's own
+   ``torch.save`` format, the newest ``max_to_keep`` kept. (The JAX package
+   writes orbax directories there, which this package cannot read.)
+2. ``state_set_<name>_best/``: the same, for the best epoch of a test set.
+3. ``net_%04d.params``: the DispNet weights in flax msgpack
+   (``utils/flax_msgpack.py``), the file the JAX package's retest and
+   presave tools read; this package reads the ones the JAX package writes.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import shutil
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..models import (dispnet_state_dict_from_flax,
+                      flax_tree_from_dispnet_state_dict)
+from ..utils import flax_msgpack
+from .state import TrainState
+
+
+def net_params_path(exp_dir: Path, epoch: int) -> Path:
+    return Path(exp_dir) / f"net_{epoch:04d}.params"
+
+
+def save_net_params(exp_dir: Path, epoch: int,
+                    model: torch.nn.Module) -> Path:
+    """Write the DispNet's weights as flax msgpack ``net_%04d.params``."""
+    path = net_params_path(exp_dir, epoch)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(flax_msgpack.to_bytes(
+        flax_tree_from_dispnet_state_dict(model.state_dict())))
+    os.replace(tmp, path)
+    return path
+
+
+def load_net_params(path: Path) -> dict[str, torch.Tensor]:
+    """A ``net_%04d.params`` file (written by either package) as a DispNet
+    ``state_dict`` on the CPU."""
+    return dispnet_state_dict_from_flax(
+        flax_msgpack.from_bytes(Path(path).read_bytes()))
+
+
+class StateCheckpointer:
+    """Rolling full-state checkpoint at <exp_dir>/<name> (default 'state')."""
+
+    FILE = "state.pt"
+
+    def __init__(self, exp_dir: Path, name: str = "state",
+                 max_to_keep: int = 2):
+        self.dir = Path(exp_dir) / name
+        self.max_to_keep = max_to_keep
+
+    def _epochs(self) -> list[int]:
+        if not self.dir.is_dir():
+            return []
+        return sorted(int(d.name) for d in self.dir.iterdir()
+                      if d.name.isdigit() and (d / self.FILE).exists())
+
+    def latest_epoch(self) -> int | None:
+        epochs = self._epochs()
+        return epochs[-1] if epochs else None
+
+    def save(self, epoch: int, state: TrainState, min_err: dict) -> None:
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+            "generator": state.generator.get_state(),
+            "host_rng": {"numpy": np.random.get_state(),
+                         "python": random.getstate()},
+            "epoch": int(epoch),
+            "min_err": {k: float(v) for k, v in min_err.items()},
+        }
+        out = self.dir / str(epoch)
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = out / (self.FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, out / self.FILE)
+        for old in self._epochs()[:-self.max_to_keep]:
+            shutil.rmtree(self.dir / str(old))
+
+    def restore(self, state: TrainState):
+        """Loads the newest saved epoch into ``state`` (model, optimizer,
+        step, generator) and the host RNGs. Returns (state, epoch, min_err),
+        or None when nothing is saved."""
+        epoch = self.latest_epoch()
+        if epoch is None:
+            return None
+        # this package's own file: it holds numpy and python RNG states
+        payload = torch.load(self.dir / str(epoch) / self.FILE,
+                             map_location="cpu", weights_only=False)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        state.generator.set_state(payload["generator"])
+        np.random.set_state(payload["host_rng"]["numpy"])
+        random.setstate(payload["host_rng"]["python"])
+        return state, int(payload["epoch"]), dict(payload["min_err"])

@@ -1,27 +1,33 @@
-"""DIS-SF evaluation objective, port of the forward, ``train=False`` part of
-``depthinspace_tpu/train/objective.py``:
+"""DIS-SF / DIS-FTSF objective, port of ``depthinspace_tpu/train/
+objective.py`` (the single-frame part):
 
   components = [photometric(out_s) / 2^s for s in 0..3,
                 0.4 * smoothness(out_0),
-                (0.2 / C(tl,2)) * sum_pairs geometric(depth(out_0))]
+                (0.2 / C(tl,2)) * sum_pairs geometric(depth(out_0)),
+                [use_pseudo_gt] 0.1 * L1(out_s, pseudo_gt) / 2^s for s in 0..3,
+                [train, real data] 0.1 * [epoch < warmup]
+                    * masked-noisy-L1(out_s, sgm_disp) for s in 0..3]
 
-Not ported yet: the training-only terms (SGM warmup), ``use_pseudo_gt``,
-``photometric_pyramid``, device augmentation and flow sources other than
-"file" and "pred".
+with the training-time device augmentation (``augment_batch_device``) and
+the flow sources "file", "rigid" and "pred". The JAX package draws its
+random numbers from jax keys; here they come from an explicit
+``torch.Generator``, or are passed in (the tests hand both packages the
+same numbers).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..losses import (CameraGeometry, geometric_loss_sf, photometric_loss,
                       smoothness_loss)
-from ..ops import disp_to_depth, lcn
+from ..ops import disp_to_depth, lcn, resize_bilinear
 
-FLOW_SOURCES = ("file", "pred")
+FLOW_SOURCES = ("file", "rigid", "pred")
 
 
 class LossContext(NamedTuple):
@@ -31,20 +37,42 @@ class LossContext(NamedTuple):
     focal_length: float
     baseline: float
     track_length: int
+    data_type: str = "synthetic"
+    warmup_epochs: int = 150
+    use_pseudo_gt: bool = False
     lcn_radius: int = 5
     smooth_weight_sf: float = 0.4
     geo_weight: float = 0.2
+    pseudo_weight: float = 0.1
+    sgm_weight: float = 0.1
+    sgm_noise_sigma: float = 1.5
+    sgm_valid_threshold: float = 30.0
     geo_clamp: float = 0.1
-    # "file": flow comes with the batch; "pred": rigid flow from the
-    # current prediction and the poses (GT-free)
+    # device augmentation of the training batches (augment_batch_device)
+    augment: bool = False
+    aug_max_blur: float = 0.5
+    aug_max_noise: float = 3.0
+    aug_max_sp_noise: float = 0.0005
+    # "file": flow comes with the batch; "rigid": from the GT disparity and
+    # the poses (synthetic data); "pred": from the current prediction and
+    # the poses (GT-free)
     flow_source: str = "file"
+    # scale s of the photometric term at 1/2^s resolution, with the
+    # per-scale LCN'd patterns for s = 1..3
+    photometric_pyramid: bool = False
+    pattern_pyr: Optional[tuple] = None
 
 
 def make_loss_context(settings, track_length: int = 4, device=None,
                       **kwargs) -> LossContext:
     """``settings``: any object with imsize, K, baseline, focal_length and
-    pattern_gray() (the JAX ``Settings`` or ``data.SyntheticSettings``)."""
-    if kwargs.get("flow_source", "file") not in FLOW_SOURCES:
+    pattern_gray() (``data.Settings`` or the JAX ``Settings``)."""
+    flow_source = kwargs.get("flow_source", "file")
+    if flow_source == "net":
+        raise NotImplementedError(
+            "flow_source='net' needs the learned FlowNet, which is not "
+            "ported yet; use 'file', 'rigid' or 'pred'")
+    if flow_source not in FLOW_SOURCES:
         raise ValueError(f"flow_source must be one of {FLOW_SOURCES}")
     H, W = settings.imsize
     cam = CameraGeometry.create(settings.K, H, W, device=device)
@@ -52,6 +80,12 @@ def make_loss_context(settings, track_length: int = 4, device=None,
     pat_raw = torch.as_tensor(np.asarray(settings.pattern_gray(), np.float32),
                               device=device)
     pat_lcn, _ = lcn(pat_raw, radius, 0.05)
+    if kwargs.get("photometric_pyramid", False):
+        # downsample the RAW pattern, then LCN (the reference's order)
+        kwargs["pattern_pyr"] = tuple(
+            lcn(resize_bilinear(pat_raw[None, :, :, None], H >> s, W >> s,
+                                align_corners=False)[0, :, :, 0],
+                radius, 0.05)[0] for s in (1, 2, 3))
     return LossContext(cam=cam, pattern_lcn=pat_lcn,
                        focal_length=float(settings.focal_length),
                        baseline=float(settings.baseline),
@@ -92,6 +126,103 @@ def rigid_flow_device(cam: CameraGeometry, disp, R, t, focal_length,
     return (flow * (1.0 - diag)).detach()
 
 
+def _gauss_blur5(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Per-frame 5x5 separable Gaussian blur, cv2.GaussianBlur(ksize=5,
+    sigmaX=sigma) with REFLECT_101 borders. x: (n, H, W); sigma: (n, 1, 1)."""
+    offs = torch.arange(-2.0, 3.0, dtype=x.dtype, device=x.device)
+    w = torch.exp(-(offs ** 2)[None, :] / (2.0 * sigma.reshape(-1, 1) ** 2))
+    w = w / torch.sum(w, dim=1, keepdim=True)            # (n, 5)
+
+    def pass1d(v, axis):
+        pad = (2, 2, 0, 0) if axis == 2 else (0, 0, 2, 2)
+        vp = F.pad(v[:, None], pad, mode="reflect")[:, 0]
+        n = v.shape[axis]
+        acc = 0.0
+        for j in range(5):
+            sl = vp[:, :, j:j + n] if axis == 2 else vp[:, j:j + n, :]
+            acc = acc + w[:, j, None, None] * sl
+        return acc
+
+    return pass1d(pass1d(x, 2), 1)
+
+
+class AugmentDraws(NamedTuple):
+    """The random numbers of one augmentation, per frame (n, 1, 1) unless
+    noted (n = tl * bs)."""
+    blur_coin: torch.Tensor           # U[0, 1): blur when < 0.5
+    blur_sigma_im: torch.Tensor       # U[0.2, aug_max_blur)
+    blur_sigma_amb: torch.Tensor
+    noise_im: torch.Tensor            # (n, H, W) standard normal
+    noise_scale_im: torch.Tensor      # U[0, aug_max_noise)
+    noise_amb: torch.Tensor           # (n, H, W)
+    noise_scale_amb: torch.Tensor
+    sp_coin: torch.Tensor             # U[0, 1): salt & pepper when < 0.5
+    sp_ratio: torch.Tensor            # U[0, aug_max_sp_noise)
+    sp_u: torch.Tensor                # (2, n, H, W) U[0, 1)
+
+
+def draw_augment(n: int, H: int, W: int, ctx: LossContext,
+                 generator: torch.Generator) -> AugmentDraws:
+    """Draw one augmentation's random numbers from ``generator``."""
+    dev = generator.device
+
+    def uni(lo, hi, shape=(n, 1, 1)):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                           device=dev)
+
+    def normal():
+        return torch.randn((n, H, W), generator=generator, device=dev)
+
+    return AugmentDraws(
+        blur_coin=uni(0.0, 1.0), blur_sigma_im=uni(0.2, ctx.aug_max_blur),
+        blur_sigma_amb=uni(0.2, ctx.aug_max_blur),
+        noise_im=normal(), noise_scale_im=uni(0.0, ctx.aug_max_noise),
+        noise_amb=normal(), noise_scale_amb=uni(0.0, ctx.aug_max_noise),
+        sp_coin=uni(0.0, 1.0), sp_ratio=uni(0.0, ctx.aug_max_sp_noise),
+        sp_u=uni(0.0, 1.0, (2, n, H, W)))
+
+
+def augment_batch_device(batch, draws: AugmentDraws):
+    """Training augmentation of the IR and ambient images on the device:
+    Gaussian blur with p=0.5 (separate sigmas for IR and ambient),
+    per-pixel Gaussian noise with a per-frame scale, salt & pepper with
+    p=0.5 on the IR (levels = the frame's pre-noise min and max), clip to
+    [0, 1]. Disparities are unchanged."""
+    tl, bs, H, W = batch.im.shape
+    n = tl * bs
+    im = batch.im.reshape(n, H, W)
+    amb = batch.ambient.reshape(n, H, W)
+    min_val = torch.amin(im, dim=(1, 2), keepdim=True)
+    max_val = torch.amax(im, dim=(1, 2), keepdim=True)
+
+    blur_on = draws.blur_coin < 0.5
+    im = torch.where(blur_on, _gauss_blur5(im, draws.blur_sigma_im), im)
+    amb = torch.where(blur_on, _gauss_blur5(amb, draws.blur_sigma_amb), amb)
+
+    im = im + draws.noise_im * draws.noise_scale_im / 255.0
+    amb = amb + draws.noise_amb * draws.noise_scale_amb / 255.0
+
+    ratio = torch.where(draws.sp_coin < 0.5, draws.sp_ratio,
+                        torch.zeros_like(draws.sp_ratio))
+    im = torch.where(draws.sp_u[0] < ratio, max_val, im)
+    im = torch.where(draws.sp_u[1] < ratio, min_val, im)
+
+    return batch._replace(im=torch.clamp(im, 0.0, 1.0).reshape(tl, bs, H, W),
+                          ambient=torch.clamp(amb, 0.0, 1.0).reshape(
+                              tl, bs, H, W))
+
+
+def prepare_batch(batch, ctx: LossContext):
+    """The step's flow source: "rigid" computes the all-pairs flow from the
+    GT disparity and the poses; "file" and "pred" leave the batch as it is
+    ("pred" derives its flow inside sf_losses)."""
+    if ctx.flow_source == "rigid":
+        batch = batch._replace(flow=rigid_flow_device(
+            ctx.cam, batch.disp_gt, batch.R, batch.t, ctx.focal_length,
+            ctx.baseline))
+    return batch
+
+
 def preprocess_images(batch, lcn_radius: int = 5):
     """LCN the IR and build the 2-channel net input (tl*bs merged).
 
@@ -105,19 +236,42 @@ def preprocess_images(batch, lcn_radius: int = 5):
     return net_in, im_lcn, im_std, amb
 
 
-def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False):
-    """DIS-SF loss vector for evaluation. outs: 4 full-resolution maps
-    (tl*bs, H, W, 1), finest first. Returns (total, components (6,))."""
-    if train:
-        raise NotImplementedError("the training terms come with the "
-                                  "training slice")
+def _sgm_warmup_term(out, sgm_disp, noise, ctx: LossContext):
+    """Masked L1 to the SGM disparities with sigma * ``noise`` added
+    (``noise`` standard normal, shaped like out)."""
+    valid = (sgm_disp > ctx.sgm_valid_threshold).to(out.dtype)
+    err = torch.abs(out - sgm_disp + ctx.sgm_noise_sigma * noise) * valid
+    return torch.sum(err) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
+              epoch: float = 0, generator: Optional[torch.Generator] = None,
+              sgm_noise=None):
+    """DIS-SF / DIS-FTSF loss vector. outs: 4 full-resolution maps
+    (tl*bs, H, W, 1), finest first. Returns (total, components): 6
+    components, + 4 with ``use_pseudo_gt``, + 4 when training on real data.
+
+    The SGM warmup term's noise is ``sgm_noise`` (4 standard-normal tensors
+    shaped like the maps) or, when that is None, drawn from ``generator``."""
     tl, bs, H, W = batch.im.shape
     _, im_lcn, im_std, amb = preprocess_images(batch, ctx.lcn_radius)
 
     comps = []
+    im_raw = batch.im.reshape(tl * bs, H, W)
     for s, o in enumerate(outs):
-        val, _ = photometric_loss(o[..., 0], im_lcn, ctx.pattern_lcn,
-                                  std=im_std)
+        if s == 0 or not ctx.photometric_pyramid:
+            val, _ = photometric_loss(o[..., 0], im_lcn, ctx.pattern_lcn,
+                                      std=im_std)
+        else:
+            # scale s at 1/2^s resolution; the scale-s head's values are
+            # already disparities in scale-s pixels
+            h_s, w_s = H >> s, W >> s
+            im_s = resize_bilinear(im_raw[..., None], h_s, w_s,
+                                   align_corners=False)[..., 0]
+            im_lcn_s, std_s = lcn(im_s, ctx.lcn_radius, 0.05)
+            disp_s = resize_bilinear(o, h_s, w_s, align_corners=False)[..., 0]
+            val, _ = photometric_loss(disp_s, im_lcn_s,
+                                      ctx.pattern_pyr[s - 1], std=std_s)
         comps.append(val / (2 ** s))
     comps.append(ctx.smooth_weight_sf * smoothness_loss(outs[0][..., 0], amb))
 
@@ -132,6 +286,21 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False):
     ge = geometric_loss_sf(ctx.cam, depth, batch.R, batch.t, flow,
                            batch.ambient, clamp=ctx.geo_clamp)
     comps.append(ctx.geo_weight / ge_num * ge)
+
+    if ctx.use_pseudo_gt:
+        pseudo = batch.pseudo_gt.reshape(tl * bs, H, W)
+        for s, o in enumerate(outs):
+            val = torch.mean(torch.abs(o[..., 0] - pseudo))
+            comps.append(ctx.pseudo_weight * val / (2 ** s))
+
+    if train and ctx.data_type == "real":
+        sgm = batch.sgm_disp.reshape(tl * bs, H, W)
+        gate = 1.0 if epoch < ctx.warmup_epochs else 0.0
+        for s, o in enumerate(outs):
+            noise = (sgm_noise[s] if sgm_noise is not None else torch.randn(
+                o[..., 0].shape, generator=generator, device=o.device))
+            val = _sgm_warmup_term(o[..., 0], sgm, noise, ctx)
+            comps.append(ctx.sgm_weight * gate * val)
 
     comps = torch.stack(comps)
     return torch.sum(comps), comps

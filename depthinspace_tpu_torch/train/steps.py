@@ -1,9 +1,12 @@
-"""DIS-SF evaluation step, port of the ``eval_step`` of
-``depthinspace_tpu/train/steps.py::_make_step_fns`` for
-``architecture="single_frame"``: preprocess, DispNet forward, the loss
-components, and disp0 quantized to u16 x256 (1/256 px) as the JAX step
-returns it. With ``flow_source="pred"`` the flow comes from the live
-prediction inside ``sf_losses``, as in the JAX step.
+"""DIS-SF train and evaluation steps, port of the single-frame part of
+``depthinspace_tpu/train/steps.py::_make_step_fns``.
+
+The train step runs the forward, the loss vector, backward and one Adam
+update, eagerly; the eval step runs the forward and the components under
+``torch.inference_mode()`` and returns disp0 quantized to u16 x256 (1/256
+px) as the JAX step does. Both apply the flow source first (``rigid``
+computes the flow from the GT disparity); with ``flow_source="pred"`` the
+flow comes from the live prediction inside ``sf_losses``.
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from ..data.batch import Batch
-from .objective import LossContext, preprocess_images, sf_losses
+from .objective import (LossContext, augment_batch_device, draw_augment,
+                        prepare_batch, preprocess_images, sf_losses)
+from .state import TrainState
 
 
 def _sf_forward(model, batch: Batch, ctx: LossContext):
@@ -19,15 +24,76 @@ def _sf_forward(model, batch: Batch, ctx: LossContext):
     return model(net_in)            # 4 x (tl*bs, H, W, 1)
 
 
+def chunk_batch(batch: Batch, k: int) -> list[Batch]:
+    """Split the batch-size axis into k consecutive microbatches, as
+    ``_chunk_batch`` does with one data-parallel shard. Every field is
+    (tl, bs, ...) except flow, (tl, tl, bs, ...)."""
+    def split(name, x, i):
+        if x is None:
+            return None
+        a = 2 if name == "flow" else 1
+        bs = x.shape[a]
+        if bs % k:
+            raise ValueError(f"batch size {bs} not divisible by accum={k}")
+        per = bs // k
+        return x.narrow(a, i * per, per)
+    return [Batch(**{f: split(f, getattr(batch, f), i)
+                     for f in Batch._fields}) for i in range(k)]
+
+
+def make_sf_train_step(model: torch.nn.Module, ctx: LossContext,
+                       state: TrainState, accum_steps: int = 1):
+    """Returns ``train_step(batch, epoch=0) -> components`` (a detached
+    float32 tensor), which updates ``model`` through ``state.optimizer`` and
+    advances ``state.step``.
+
+    ``accum_steps > 1`` runs forward and backward over bs/accum consecutive
+    microbatches, sums their gradients, scales the sum by 1/accum and takes
+    one optimizer step; the components are the microbatches' mean. The
+    gradients stay on the parameters until the next step."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(batch: Batch, epoch: float = 0) -> torch.Tensor:
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        comps_sum = None
+        chunks = chunk_batch(batch, accum_steps) if accum_steps > 1 \
+            else [batch]
+        for b in chunks:
+            if ctx.augment:
+                tl, bs, H, W = b.im.shape
+                b = augment_batch_device(b, draw_augment(
+                    tl * bs, H, W, ctx, state.generator))
+            b = prepare_batch(b, ctx)
+            outs = _sf_forward(model, b, ctx)
+            total, comps = sf_losses(outs, b, ctx, train=True, epoch=epoch,
+                                     generator=state.generator)
+            total.backward()
+            comps = comps.detach()
+            comps_sum = comps if comps_sum is None else comps_sum + comps
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            comps_sum = comps_sum * inv
+        state.optimizer.step()
+        state.step += 1
+        return comps_sum
+
+    return train_step
+
+
 def make_sf_eval_step(model: torch.nn.Module, ctx: LossContext):
-    """Returns ``eval_step(batch) -> (disp0_u16 (tl, bs, H, W) uint16,
-    components (6,) float32)``; ``batch`` holds float32 tensors on the
+    """Returns ``eval_step(batch, epoch=0) -> (disp0_u16 (tl, bs, H, W)
+    uint16, components float32)``; ``batch`` holds float32 tensors on the
     model's device (``data.batch_to_torch``)."""
 
     @torch.inference_mode()
-    def eval_step(batch: Batch):
+    def eval_step(batch: Batch, epoch: float = 0):
+        batch = prepare_batch(batch, ctx)
         outs = _sf_forward(model, batch, ctx)
-        _, comps = sf_losses(outs, batch, ctx, train=False)
+        _, comps = sf_losses(outs, batch, ctx, train=False, epoch=epoch)
         disp = outs[0][..., 0].reshape(batch.im.shape)
         disp_u16 = torch.clamp(disp * 256.0 + 0.5, 0, 65535).to(
             torch.int32).to(torch.uint16)

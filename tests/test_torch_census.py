@@ -36,8 +36,16 @@ def test_census_dispatch_cpu_is_plain():
 
 
 def test_census_kernel_wrapper_refuses_cpu_and_grad():
+    """The kernel wrappers take CUDA tensors only, forward and backward; a
+    CPU tensor that requires grad goes through the plain versions, and the
+    gradient reaches es only."""
     es, ta = map(torch.from_numpy, _inputs((1, 8, 8), 2))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.census_sad_fwd(es, ta)
-    with pytest.raises(NotImplementedError, match="backward"):
-        kernels._forward_only("census_sad_fwd", es.requires_grad_(), ta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.census_sad_bwd(es, ta, es)
+    es.requires_grad_()
+    ta.requires_grad_()
+    census_sad(es, ta).sum().backward()
+    assert es.grad is not None and bool(torch.isfinite(es.grad).all())
+    assert ta.grad is None

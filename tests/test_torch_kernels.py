@@ -1,6 +1,7 @@
 """The CUDA kernels of depthinspace_tpu_torch against their plain PyTorch
-versions, on the card. Every test here needs an NVIDIA card and skips
-without one. This file imports no JAX, so it also runs where JAX is not
+versions, on the card, forward and backward, and each backward kernel
+against finite differences of the plain forward in float64. Every test here
+needs an NVIDIA card and skips without one. This file imports no JAX, so it also runs where JAX is not
 installed:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
@@ -10,9 +11,12 @@ import pytest
 import torch
 
 from depthinspace_tpu_torch.ops import kernels
-from depthinspace_tpu_torch.ops.census import census_sad, census_sad_plain
-from depthinspace_tpu_torch.ops.resample import (flow_warp, warp2d_plain,
-                                                 warp_pattern, xwarp_plain)
+from depthinspace_tpu_torch.ops.census import (census_sad,
+                                               census_sad_bwd_plain,
+                                               census_sad_plain)
+from depthinspace_tpu_torch.ops.resample import (flow_warp, warp2d_bwd_plain,
+                                                 warp2d_plain, warp_pattern,
+                                                 xwarp_bwd_plain, xwarp_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,9 +89,107 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernels.xwarp_fwd(x[0, :8], x)
     with pytest.raises(ValueError):
         kernels.warp2d_fwd(x[..., None], x[..., None])
-    with pytest.raises(NotImplementedError, match="backward"):
-        kernels.census_sad_fwd(x.clone().requires_grad_(), x)
+    with pytest.raises(ValueError, match="fit"):
+        kernels.census_sad_bwd(x, x, x[:, :8].contiguous())
+    with pytest.raises(ValueError, match="fit"):
+        kernels.xwarp_bwd(x[0], x, x[:1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.warp2d_bwd(x[..., None].expand(2, 16, 16, 2),
+                           x[..., None].expand(2, 16, 16, 3))
     before = dict(kernels.launches)
     empty = torch.empty(0, 4, 4, device=cuda)
     assert kernels.census_sad_fwd(empty, empty).shape == (0, 4, 4)
     assert kernels.launches == before
+
+
+def _grad_of(fn, x, g):
+    x = x.clone().requires_grad_()
+    fn(x).backward(g)
+    return x.grad
+
+
+# Ragged and border-heavy shapes, then the DIS-SF train step's (tl=4, bs=8).
+BWD_SHAPES = [(1, 5, 3), (3, 37, 50), (2, 9, 7), (32, 512, 432)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_census_bwd_kernel_matches_plain(cuda, shape):
+    es, ta, g = (_randn(shape, s, cuda) for s in (10, 11, 12))
+    before = kernels.launches["census_sad_bwd"]
+    grad = _grad_of(lambda e: census_sad(e, ta), es, g)
+    torch.cuda.synchronize()
+    assert kernels.launches["census_sad_bwd"] == before + 1
+    # the signs agree (round-to-nearest h in the plain order); dh uses
+    # rsqrtf and the 162 terms are summed in another order
+    torch.testing.assert_close(grad, census_sad_bwd_plain(es, ta, g),
+                               rtol=0, atol=1e-5)
+
+
+def _disp(shape, seed, device):
+    N, H, W = shape
+    rng = np.random.RandomState(seed)
+    d = rng.uniform(-3.0, W + 3.0, shape).astype(np.float32)
+    d[0, 0, :min(W, 3)] = [0.0, float(W - 1), 1.0][:min(W, 3)]
+    return torch.from_numpy(d).to(device)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_xwarp_bwd_kernel_matches_plain(cuda, shape):
+    N, H, W = shape
+    pat, g, disp = _randn((H, W), 13, cuda), _randn(shape, 14, cuda), \
+        _disp(shape, 15, cuda)
+    before = kernels.launches["xwarp_bwd"]
+    grad = _grad_of(lambda d: warp_pattern(pat, d), disp, g)
+    grad_t = _grad_of(lambda d: warp_pattern(pat, d), disp, g.mT.contiguous().mT)
+    torch.cuda.synchronize()
+    assert kernels.launches["xwarp_bwd"] == before + 2
+    torch.testing.assert_close(grad, xwarp_bwd_plain(pat, disp, g), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(grad_t, grad, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,C,max_flow", [((1, 5, 3), 1, 4.0),
+                                              ((3, 37, 50), 1, 30.0),
+                                              ((2, 9, 7), 5, 12.0),
+                                              ((96, 512, 432), 1, 4.0)])
+def test_warp2d_bwd_kernel_matches_plain(cuda, shape, C, max_flow):
+    M, H, W = shape
+    rng = np.random.RandomState(16)
+    flow = torch.from_numpy(rng.uniform(-max_flow, max_flow, (M, H, W, 2))
+                            .astype(np.float32)).to(cuda)
+    img, g = _randn((M, H, W, C), 17, cuda), _randn((M, H, W, C), 18, cuda)
+    before = kernels.launches["warp2d_bwd"]
+    grad = _grad_of(lambda x: flow_warp(x, flow), img, g)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_bwd"] == before + 1
+    # float atomics: sums of 3+ contributions in a varying order
+    torch.testing.assert_close(grad, warp2d_bwd_plain(flow, g), rtol=0,
+                               atol=1e-5)
+
+
+def _fd_check(kernel_grad, plain_fn, x, g, seed, h=1e-6):
+    """<kernel_grad, v> against the central difference of <g, plain(x)>
+    along a random direction v, in float64."""
+    v = _randn(tuple(x.shape), seed, x.device).double()
+    x64, g64 = x.double(), g.double()
+    fd = (torch.sum(g64 * plain_fn(x64 + h * v))
+          - torch.sum(g64 * plain_fn(x64 - h * v))) / (2 * h)
+    an = torch.sum(kernel_grad.double() * v)
+    assert abs(float(an - fd)) <= 1e-4 * max(1.0, abs(float(fd))), (an, fd)
+
+
+def test_bwd_kernels_match_finite_differences(cuda):
+    shape = (2, 21, 19)
+    es, ta, g = (_randn(shape, s, cuda) for s in (20, 21, 22))
+    _fd_check(_grad_of(lambda e: census_sad(e, ta), es, g),
+              lambda e: census_sad_plain(e, ta.double()), es, g, 23)
+    pat = _randn(shape[1:], 24, cuda)
+    disp = torch.from_numpy(np.random.RandomState(25).uniform(
+        1.2, 17.8, shape).astype(np.float32)).to(cuda)
+    _fd_check(_grad_of(lambda d: warp_pattern(pat, d), disp, g),
+              lambda d: xwarp_plain(pat.double(), d), disp, g, 26)
+    flow = torch.from_numpy(np.random.RandomState(27).uniform(
+        -6.0, 6.0, shape + (2,)).astype(np.float32)).to(cuda)
+    img, g4 = _randn(shape + (3,), 28, cuda), _randn(shape + (3,), 29, cuda)
+    _fd_check(_grad_of(lambda x: flow_warp(x, flow), img, g4),
+              lambda x: warp2d_plain(x, flow.double()), img, g4, 30)

@@ -21,12 +21,15 @@ from depthinspace_tpu.data.settings import Settings
 from depthinspace_tpu.models import DispNet as JaxDispNet
 from depthinspace_tpu.serve import DisparityServer as JaxServer
 from depthinspace_tpu.train.objective import make_loss_context as jax_ctx
+from depthinspace_tpu.train.checkpoint import (
+    save_net_params as jax_save_net_params)
 from depthinspace_tpu.train.steps import _make_step_fns
 from depthinspace_tpu_torch.data import (batch_to_torch, make_dot_pattern,
                                          make_track_batch)
 from depthinspace_tpu_torch.models import DispNet, dispnet_state_dict_from_flax
 from depthinspace_tpu_torch.serve import DisparityServer, _bucket
 from depthinspace_tpu_torch.train import make_loss_context, make_sf_eval_step
+from depthinspace_tpu_torch.train.checkpoint import save_net_params
 
 H, W = 64, 56
 REPO = Path(__file__).resolve().parents[1]
@@ -82,7 +85,8 @@ def test_bucket():
 
 def test_server_matches_jax_server(setup, tmp_path):
     """Ragged request (4 + 2), outputs within 1e-3 px of the JAX server's;
-    a checkpoint written by the port loads back to the same outputs."""
+    a net_%04d.params written by the JAX package, and one written by the
+    port, load through from_net_params to the same outputs."""
     _, _, params, _ = setup
     rng = np.random.RandomState(0)
     ims = rng.rand(6, H, W).astype(np.float32)
@@ -95,45 +99,71 @@ def test_server_matches_jax_server(setup, tmp_path):
     assert out.shape == (6, H, W)
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
 
-    srv.save_checkpoint(tmp_path / "dispnet.pt")
-    again = DisparityServer.from_checkpoint(tmp_path / "dispnet.pt",
-                                            imsize=(H, W), max_batch=4,
-                                            device="cpu")
-    np.testing.assert_array_equal(again.infer(ims), out)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    jax_path = jax_save_net_params(tmp_path / "jax", 7, params)
+    port_path = save_net_params(tmp_path / "port", 7, srv.model)
+    for path in (jax_path, port_path):
+        again = DisparityServer.from_net_params(path, imsize=(H, W),
+                                                max_batch=4, device="cpu")
+        np.testing.assert_array_equal(again.infer(ims), out)
 
 
-def test_port_runs_without_jax_flax_h5py_cv2():
+def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     """Imports every module of the port and runs the tiny slice in a process
-    where the JAX stack, h5py, cv2 and the JAX package cannot be imported."""
+    where the JAX stack, h5py, cv2, msgpack, matplotlib and the JAX package
+    cannot be imported: an eval step, the server, one train step, and the
+    worker for one epoch on in-memory synthetic samples, with a resume."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "flax", "h5py", "cv2", "depthinspace_tpu"):
+        from pathlib import Path
+        BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "h5py", "cv2",
+                   "matplotlib", "depthinspace_tpu")
+        for name in BLOCKED:
             sys.modules[name] = None
         import torch
         import depthinspace_tpu_torch as pkg
         for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(mod.name)
-        from depthinspace_tpu_torch.data import (batch_to_torch, make_settings,
+        from depthinspace_tpu_torch.config import RunConfig
+        from depthinspace_tpu_torch.data import (SyntheticSource,
+                                                 batch_to_torch, make_settings,
                                                  make_track_batch)
         from depthinspace_tpu_torch.models import DispNet, init_dispnet_
         from depthinspace_tpu_torch.serve import DisparityServer
-        from depthinspace_tpu_torch.train import (make_loss_context,
-                                                  make_sf_eval_step)
+        from depthinspace_tpu_torch.train import (TrainState,
+                                                  make_loss_context,
+                                                  make_sf_eval_step,
+                                                  make_sf_train_step)
+        from depthinspace_tpu_torch.train.single_frame import (
+            SingleFrameWorker)
         s = make_settings(32, 24)
         b = make_track_batch(s, tl=4, bs=1, seed=0, disp_range=(2.0, 8.0))
         net = init_dispnet_(DispNet(), torch.Generator().manual_seed(0)).eval()
-        step = make_sf_eval_step(net, make_loss_context(s, 4, device="cpu"))
-        _, comps = step(batch_to_torch(b, "cpu"))
+        ctx = make_loss_context(s, 4, device="cpu")
+        _, comps = make_sf_eval_step(net, ctx)(batch_to_torch(b, "cpu"))
         assert comps.shape == (6,) and bool(torch.isfinite(comps).all())
         out = DisparityServer(net, imsize=(32, 24), max_batch=2,
                               device="cpu").infer(b.im[0])
         assert out.shape == (1, 32, 24)
-        assert not any(sys.modules.get(m) for m in ("jax", "flax", "h5py",
-                                                     "cv2"))
+        state = TrainState.create(net, device="cpu")
+        comps = make_sf_train_step(net, ctx, state)(batch_to_torch(b, "cpu"))
+        assert state.step == 1 and bool(torch.isfinite(comps).all())
+        cfg = RunConfig(data_dir=Path("."), output_dir=Path(sys.argv[1]),
+                        epochs=1, train_batch_size=1, max_train_iter=1,
+                        test_batch_size=1, num_workers=1)
+        src = SyntheticSource(s, 3)
+        SingleFrameWorker(cfg, device="cpu", source=src).do("retrain")
+        cfg.epochs = 2
+        SingleFrameWorker(cfg, device="cpu", source=src).do("resume")
+        exp = Path(sys.argv[1]) / "single_frame"
+        assert (exp / "net_0001.params").exists()
+        assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
