@@ -7,14 +7,17 @@ Phases, one or more lines each; any failure raises and exits nonzero:
 
 1. probe   the card, torch, CUDA, nvcc, nvidia-smi (exits nonzero without
            a CUDA card);
-2. build   the CUDA kernels of csrc/ with nvcc for sm_90a;
-3. kernels each kernel (K1 census-SAD, K2 pattern warp, K3 flow warp, and
-           their backward kernels) against its plain PyTorch version at the
-           main paths' shapes (the forward kernels at the eval step's and
-           the train step's), with the tolerance stated beside it; the
-           median device time of the kernel, of the plain version and of the
-           one PyTorch call that computes the same function where there is
-           one (F.grid_sample and its backward), and the kernel's bound;
+2. build   the CUDA kernels of csrc/ with nvcc for sm_90a, one nvcc per
+           source, all at once;
+3. kernels each kernel (K1 census-SAD, K2 pattern warp, K3 flow warp, K4
+           pair-indexed flow warp in bf16 and f32, K5 = K3's kernels through
+           the warp_kernel.warp2d entry point, and their backward kernels)
+           against its plain PyTorch version at the main paths' shapes (the
+           forward kernels at the eval step's and the train step's), with
+           the tolerance stated beside it; the median device time of the
+           kernel, of the plain version and of the one PyTorch call that
+           computes the same function where there is one (F.grid_sample and
+           its backward), and the kernel's bound;
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
            ragged 13-image request (8 + 5), maps/s;
 5. eval    the DIS-SF evaluation step on a (tl=4, bs=2) synthetic track batch
@@ -25,7 +28,7 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            (plain versions), TF32 off, same weights;
 7. train   the DIS-SF train step (Adam) at tl=4, bs=8, 512x432, f32, on one
            synthetic batch with flow from the batch: ms/step, peak memory,
-           the profiler's device time by kernel, the loss falling within 30
+           the profiler's device time by kernel group, the loss falling within 30
            steps; the counters are zeroed before it and read after it: every
            kernel, forward and backward, must have run on that path. Then
            the step with accum_steps=2 and device augmentation;
@@ -34,8 +37,29 @@ Phases, one or more lines each; any failure raises and exits nonzero:
 9. worker  SingleFrameWorker on in-memory synthetic samples at 512x432: one
            epoch, a resume that starts at epoch 1, a retest of epoch 0.
 
+DIS-MF (FuseNet: 4 blocks, 32 channels, tl = 4, 512x432, bf16 compute), with
+the stand-in primary disparity (GT + seeded noise) and rigid flow; the
+launch counters are zeroed before phase 10 and read after phase 12 (the MF
+path; every kernel but K5 must run on it):
+
+10. mf serve   TrackDisparityServer from seeded DispNet + FuseNet weights: a
+               ragged 3-track request (bucket 4), then 4-track requests,
+               tracks/s; per bucket exactly 1 K3 and 8 K4 launches;
+11. mf eval    the MF eval step at tl = 4, bs = 4, flow from the batch and
+               from the primary disparity ("pred");
+12. mf train   the MF train step at 4 tracks x 4 frames, bf16, no remat,
+               Adam(1e-4): ms/step, peak memory, the profiler's device time
+               by kernel group, the loss falling, exactly 1/1 K1, 1/1 K2,
+               3/1 K3 and 8/8 K4 launches (forward/backward) per step; then
+               the step in f32 and with accum_steps = 2;
+13. mf parity  the MF eval step (bs = 1, f32) and one MF train step (bs = 1,
+               f32) on the card and on the CPU from the same weights;
+14. mf worker  MultiFrameWorker on in-memory samples: one epoch, a resume at
+               epoch 1, a retest of epoch 0.
+
 The last lines are the card's name and power limit, one JSON object with the
-kernels' results, and {"ok": true, "device": {...}}.
+kernels' results (launches on the MF path), and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -78,7 +102,17 @@ TOL = {
     "xwarp_bwd": 0.0,
     # float atomics: sums of 3+ contributions in a varying order
     "warp2d_bwd": 1e-5,
+    # K4: K3's arithmetic in float32 with one rounding at the store (exact
+    # in both dtypes); the backward's atomics sum a source pixel's terms
+    # from its pairs in a varying order (f32: 1e-5 at |g| ~ 1; bf16: that
+    # float32 sum rounded once, one bf16 ulp either side: rtol 2^-6)
+    "warp2d_pairs_fwd": 0.0,
+    "warp2d_pairs_bwd": 1e-5,
+    # K5 runs K3's kernels
+    "warp2d_v1_fwd": 0.0,
+    "warp2d_v1_bwd": 1e-5,
 }
+BF16_RTOL = 2.0 ** -6
 REPLACES = {
     "census_sad_fwd": "depthinspace_tpu/ops/pallas/census_kernel.py:116",
     "xwarp_fwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:123",
@@ -86,6 +120,10 @@ REPLACES = {
     "census_sad_bwd": "depthinspace_tpu/ops/pallas/census_kernel.py:143",
     "xwarp_bwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:156",
     "warp2d_bwd": "depthinspace_tpu/ops/pallas/warp2d_v2.py:300",
+    "warp2d_pairs_fwd": "depthinspace_tpu/ops/pallas/warp2d_pairs.py:206",
+    "warp2d_pairs_bwd": "depthinspace_tpu/ops/pallas/warp2d_pairs.py:255",
+    "warp2d_v1_fwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:407",
+    "warp2d_v1_bwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:446",
 }
 SOURCE = {
     "census_sad_fwd": "depthinspace_tpu_torch/csrc/census_sad.cu",
@@ -94,12 +132,24 @@ SOURCE = {
     "census_sad_bwd": "depthinspace_tpu_torch/csrc/census_sad.cu",
     "xwarp_bwd": "depthinspace_tpu_torch/csrc/xwarp.cu",
     "warp2d_bwd": "depthinspace_tpu_torch/csrc/warp2d.cu",
+    "warp2d_pairs_fwd": "depthinspace_tpu_torch/csrc/warp2d_pairs.cu",
+    "warp2d_pairs_bwd": "depthinspace_tpu_torch/csrc/warp2d_pairs.cu",
+    "warp2d_v1_fwd": "depthinspace_tpu_torch/csrc/warp2d.cu",
+    "warp2d_v1_bwd": "depthinspace_tpu_torch/csrc/warp2d.cu",
 }
 # kernel launches per DIS-SF train step (tl=4: 4 photometric scales; one
 # geometric loss with a C=1 and a C=3 flow warp, only the first needing
 # a gradient)
 PER_TRAIN_STEP = {"census_sad_fwd": 4, "xwarp_fwd": 4, "warp2d_fwd": 2,
                   "census_sad_bwd": 4, "xwarp_bwd": 4, "warp2d_bwd": 1}
+# per DIS-MF train step: one photometric term (K2, K1), the MF geometric
+# loss's C=1 (with gradient) and C=5 K3 calls plus FuseNet's geometry warp,
+# and 2 K4 calls in each of the 4 fusion blocks, all with gradient
+PER_MF_STEP = {"census_sad_fwd": 1, "xwarp_fwd": 1, "warp2d_fwd": 3,
+               "warp2d_pairs_fwd": 8, "warp2d_v1_fwd": 0,
+               "census_sad_bwd": 1, "xwarp_bwd": 1, "warp2d_bwd": 1,
+               "warp2d_pairs_bwd": 8, "warp2d_v1_bwd": 0}
+MF_TRACKS = 4
 
 
 def check(cond, what: str) -> None:
@@ -165,6 +215,9 @@ def grid_of(x, y):
     import torch
     Hh, Ww = x.shape[-2:]
     return torch.stack([x / (Ww - 1) * 2 - 1, y / (Hh - 1) * 2 - 1], dim=-1)
+
+
+T_START = time.perf_counter()
 
 
 def main() -> None:
@@ -381,6 +434,144 @@ def main() -> None:
                                   [True, False])),
            bound_ms(4 * m3t * (2 + 1 + 1)),
            f"flow {tuple(f0_t.shape)} g {tuple(g_k3.shape)}")
+
+    # K4 at the DIS-MF train step's shapes: 4 tracks x 4 frames give S = 16
+    # source planes and M = 48 pairs of 32 channels, at both fusion scales
+    # (256x216 and 128x108), with the rigid flow of a synthetic batch; bf16
+    # (the path's type) and f32. A row sums one call at each scale.
+    from depthinspace_tpu_torch.models.fusenet import (_pair_flows,
+                                                       _pair_list,
+                                                       _resize_flow_grid)
+    from depthinspace_tpu_torch.ops.resample import (flow_warp_pairs,
+                                                     warp2d_pairs_bwd_plain,
+                                                     warp2d_pairs_plain,
+                                                     warp2d_v1)
+    t0 = time.perf_counter()
+    mf_np = make_track_batch(settings, tl=TL, bs=MF_TRACKS, seed=SEED + 20,
+                             primary_noise=0.5)
+    print(f"[data] synthetic track batch tl={TL} bs={MF_TRACKS} with the "
+          f"stand-in primary (GT + 0.5 px noise) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    flow_mf = torch.as_tensor(mf_np.flow, device=dev)
+    src_mf = tuple(j * MF_TRACKS + n for _, j in _pair_list(TL)
+                   for n in range(MF_TRACKS))
+    S_mf = TL * MF_TRACKS
+    rng_p = np.random.RandomState(SEED + 11)
+    k4 = {}
+    for dt in (torch.bfloat16, torch.float32):
+        elt = 2 if dt == torch.bfloat16 else 4
+        acc = {k: [0.0] * 5 for k in ("fwd", "bwd")}   # err, ms, plain, lib
+        nbytes = {"fwd": 0, "bwd": 0}
+        nflops = {"fwd": 0, "bwd": 0}
+        for h, w in ((H // 2, W // 2), (H // 4, W // 4)):
+            pf = _pair_flows(_resize_flow_grid(flow_mf, h, w))
+            feat = torch.as_tensor(rng_p.randn(S_mf, h, w, 32).astype(
+                np.float32), device=dev).to(dt)
+            g = torch.as_tensor(rng_p.randn(len(src_mf), h, w, 32).astype(
+                np.float32), device=dev).to(dt)
+            out = flow_warp_pairs(feat, pf, src_mf)
+            ref = warp2d_pairs_plain(feat, pf, src_mf)
+            grad = bwd(lambda x: flow_warp_pairs(x, pf, src_mf), feat, g)
+            ref_g = warp2d_pairs_bwd_plain(pf, src_mf, g, S_mf)
+            torch.cuda.synchronize()
+            err_f = float((out.float() - ref.float()).abs().max())
+            dg = (grad.float() - ref_g.float()).abs()
+            err_b = float(dg.max())
+            if dt == torch.bfloat16:
+                ok_b = bool((dg <= TOL["warp2d_pairs_bwd"]
+                             + BF16_RTOL * ref_g.float().abs()).all())
+            else:
+                ok_b = err_b <= TOL["warp2d_pairs_bwd"]
+            check(err_f <= TOL["warp2d_pairs_fwd"]
+                  and bool(torch.isfinite(out).all()),
+                  f"warp2d_pairs_fwd {dt} disagrees with its plain version: "
+                  f"{err_f}")
+            check(ok_b and bool(torch.isfinite(grad).all()),
+                  f"warp2d_pairs_bwd {dt} disagrees with its plain version: "
+                  f"{err_b}")
+            srcs = torch.as_tensor(src_mf, device=dev)
+            stacked = feat.index_select(0, srcs).permute(0, 3, 1, 2)
+            stacked = stacked.contiguous()
+            u_s = torch.arange(w, dtype=torch.float32, device=dev)
+            v_s = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+            grid_p = grid_of(pf[..., 0] + u_s, pf[..., 1] + v_s).to(dt)
+            g_nchw = g.permute(0, 3, 1, 2).contiguous()
+            times = {
+                "fwd": (cuda_ms(lambda: kernels.warp2d_pairs_fwd(
+                            feat, pf, src_mf)),
+                        cuda_ms(lambda: warp2d_pairs_plain(feat, pf, src_mf),
+                                reps=5),
+                        cuda_ms(lambda: F.grid_sample(
+                            stacked, grid_p, mode="bilinear",
+                            padding_mode="zeros", align_corners=True))),
+                "bwd": (cuda_ms(lambda: kernels.warp2d_pairs_bwd(
+                            pf, src_mf, g, S_mf)),
+                        cuda_ms(lambda: warp2d_pairs_bwd_plain(
+                            pf, src_mf, g, S_mf), reps=5),
+                        cuda_ms(lambda: gs_bwd(g_nchw, stacked, grid_p, 0, 0,
+                                               True, [True, False])))}
+            for k, e in (("fwd", err_f), ("bwd", err_b)):
+                acc[k][0] = max(acc[k][0], e)
+                for i in range(3):
+                    acc[k][i + 1] += times[k][i]
+            M_px = len(src_mf) * h * w
+            # each input read once, each output written once; per output
+            # element 4 products and 3 sums, per pixel ~15 for the taps
+            nbytes["fwd"] += S_mf * h * w * 32 * elt + M_px * 8 \
+                + M_px * 32 * elt
+            nbytes["bwd"] += M_px * 8 + M_px * 32 * elt + S_mf * h * w * 32 * elt
+            nflops["fwd"] += M_px * (7 * 32 + 15)
+            nflops["bwd"] += M_px * (8 * 32 + 15)
+            print(f"[kernel] warp2d_pairs {dt} S={S_mf} M={len(src_mf)} "
+                  f"{h}x{w}x32: fwd max|kernel-plain| {err_f:.3g} kernel "
+                  f"{times['fwd'][0]:.4f} ms plain {times['fwd'][1]:.4f} ms "
+                  f"grid_sample {times['fwd'][2]:.4f} ms; bwd max|kernel-"
+                  f"plain| {err_b:.3g} kernel {times['bwd'][0]:.4f} ms plain "
+                  f"{times['bwd'][1]:.4f} ms grid_sample bwd "
+                  f"{times['bwd'][2]:.4f} ms")
+            del feat, g, grad, ref_g, out, ref, stacked, g_nchw, grid_p
+        for k in ("fwd", "bwd"):
+            b = bound_ms(nbytes[k], flops=nflops[k])
+            k4[(k, dt)] = dict(max_abs_err=acc[k][0], ms=acc[k][1],
+                               plain_ms=acc[k][2], library_ms=acc[k][3],
+                               bound_ms=b[0], bound_by=b[1])
+            print(f"[kernel] warp2d_pairs_{k} {dt} (both scales): kernel "
+                  f"{acc[k][1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+                  f"{b[0] / acc[k][1]:.0%} of it)")
+    for k in ("fwd", "bwd"):
+        results[f"warp2d_pairs_{k}"] = dict(
+            **k4[(k, torch.bfloat16)], dtype="bfloat16",
+            f32=k4[(k, torch.float32)])
+
+    # K5: K3's kernels through the warp_kernel.warp2d entry point, at the
+    # MF geometric loss's depth sample (12 directions x 4 tracks, C = 1)
+    dirs_mf = _ordered_directions(TL)
+    f0_mf = torch.cat([flow_mf[a, b] for a, b in dirs_mf]).contiguous()
+    img5 = torch.as_tensor(rng_p.rand(*f0_mf.shape[:3], 1).astype(
+        np.float32), device=dev)
+    g5 = torch.as_tensor(rng_p.randn(*f0_mf.shape[:3], 1).astype(
+        np.float32), device=dev)
+    grid5 = grid_of(f0_mf[..., 0] + u, f0_mf[..., 1] + v)
+    img5n, g5n = img5.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
+    m5 = f0_mf.shape[0] * H * W
+    record("warp2d_v1_fwd", warp2d_v1(img5, f0_mf),
+           warp2d_plain(img5, f0_mf),
+           cuda_ms(lambda: kernels.warp2d_v1_fwd(img5, f0_mf)),
+           cuda_ms(lambda: warp2d_plain(img5, f0_mf)),
+           cuda_ms(lambda: F.grid_sample(img5n, grid5, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True)),
+           bound_ms(4 * m5 * (2 + 1 + 1)),
+           f"img {tuple(img5.shape)} flow {tuple(f0_mf.shape)}")
+    record("warp2d_v1_bwd", bwd(lambda x: warp2d_v1(x, f0_mf), img5, g5),
+           warp2d_bwd_plain(f0_mf, g5),
+           cuda_ms(lambda: kernels.warp2d_v1_bwd(f0_mf, g5)),
+           cuda_ms(lambda: warp2d_bwd_plain(f0_mf, g5), reps=5),
+           cuda_ms(lambda: gs_bwd(g5n, img5n, grid5, 0, 0, True,
+                                  [True, False])),
+           bound_ms(4 * m5 * (2 + 1 + 1)),
+           f"flow {tuple(f0_mf.shape)} g {tuple(g5.shape)}")
+    del img5, g5, grid5, img5n, g5n
     del es_t, ta_t, g_t, pat_t, grid_t, g_k3, img_k3, grid_k3
     torch.cuda.empty_cache()
 
@@ -511,36 +702,7 @@ def main() -> None:
         check(counts_t[name] == per * steps,
               f"{name}: {counts_t[name]} launches, expected {per} x {steps}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            train_step(tbatch)
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 3e3, e.count // 3)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0
-            and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    check(busy > 0, "the profiler saw no device time")
-    print(f"[profile] train step: device time {busy:.2f} ms/step over "
-          f"{len(rows)} kernel names; top 15 (ms/step, launches/step):")
-    for key, ms, cnt in rows[:15]:
-        print(f"[profile]   {ms:8.3f} {cnt:5d}  {key[:110]}")
-    ours = {k.replace("(anonymous namespace)::", "").split("(")[0]: ms
-            for k, ms, _ in rows
-            if "census_sad" in k or "xwarp" in k or "warp2d" in k}
-    print(f"[profile] hand-written kernels: {sum(ours.values()):.3f} ms/step "
-          f"({sum(ours.values()) / busy:.1%}): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ours.items()))
-    conv = sum(ms for k, ms, _ in rows if any(
-        s in k.lower() for s in ("conv", "cudnn", "xmma", "gemm", "wgrad",
-                                 "dgrad", "fft", "winograd")))
-    adam = sum(ms for k, ms, _ in rows if "adam" in k.lower()
-               or "multi_tensor" in k.lower())
-    print(f"[profile] convolution/GEMM kernels {conv:.2f} ms ({conv / busy:.1%}), "
-          f"optimizer {adam:.3f} ms, the rest {busy - conv - adam - sum(ours.values()):.2f} ms")
+    profile_step(train_step, tbatch, "train step", GROUPS)
 
     state2 = TrainState.create(copy.deepcopy(train_model), 1e-4, seed=SEED,
                                device=dev)
@@ -570,17 +732,6 @@ def main() -> None:
         print(f"[train parity] {d.type} step {time.perf_counter() - t0:.1f} s")
         return comps, {k: p.grad.detach().cpu().double()
                        for k, p in m.named_parameters()}
-
-    def grad_diff(a, b):
-        """(relative L2 over all parameters, per-tensor relative L2)."""
-        per = {k: float(torch.linalg.vector_norm(a[k] - b[k])
-                        / torch.linalg.vector_norm(b[k])) for k in b}
-        whole = float(
-            torch.linalg.vector_norm(torch.cat([(a[k] - b[k]).flatten()
-                                                for k in b]))
-            / torch.linalg.vector_norm(torch.cat([g.flatten()
-                                                  for g in b.values()])))
-        return whole, per
 
     c_card, g_card = one_step(dev)
     _, g_card2 = one_step(dev)
@@ -649,15 +800,340 @@ def main() -> None:
               f"{time.perf_counter() - t0:.1f} s")
         check(rel_r.max() <= 1e-4, f"retest of epoch 0 differs: {rel_r}")
 
+    mf_counts = mf_phases(settings, dev, smi, model, mf_np)
+
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name],
-         "launches": (counts_t if name.endswith("_bwd") else counts)[name],
-         **r} for name, r in results.items()]}
+         "replaces": REPLACES[name], "launches": mf_counts[name], **r}
+        for name, r in results.items()]}
+    print(f"[total] {time.perf_counter() - T_START:.1f} s for the whole run")
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+
+
+def grad_diff(a: dict, b: dict) -> tuple[float, dict]:
+    """(relative L2 of a - b over all parameters, per-tensor relative L2)."""
+    import torch
+    per = {k: float(torch.linalg.vector_norm(a[k] - b[k])
+                    / torch.linalg.vector_norm(b[k])) for k in b}
+    whole = float(
+        torch.linalg.vector_norm(torch.cat([(a[k] - b[k]).flatten()
+                                            for k in b]))
+        / torch.linalg.vector_norm(torch.cat([g.flatten()
+                                              for g in b.values()])))
+    return whole, per
+
+
+def profile_step(step, batch, label: str, groups: dict) -> float:
+    """torch.profiler over 3 calls of ``step(batch)``: prints device ms per
+    call by kernel group and the top kernels; returns busy device ms/call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 3e3, e.count // 3)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler saw no device time")
+    print(f"[profile] {label}: device time {busy:.2f} ms/step over "
+          f"{len(rows)} kernel names; top 12 (ms/step, launches/step):")
+    for key, ms, cnt in rows[:12]:
+        print(f"[profile]   {ms:8.3f} {cnt:5d}  {key[:110]}")
+    seen = set()
+    parts = []
+    for gname, keys in groups.items():
+        ms = sum(r[1] for r in rows if r[0] not in seen
+                 and any(k in r[0].lower() for k in keys))
+        seen |= {r[0] for r in rows if any(k in r[0].lower() for k in keys)}
+        parts.append(f"{gname} {ms:.2f} ({ms / busy:.1%})")
+    rest = sum(r[1] for r in rows if r[0] not in seen)
+    print(f"[profile] {label} by group (ms/step): " + ", ".join(parts)
+          + f", the rest {rest:.2f} ({rest / busy:.1%})")
+    return busy
+
+
+# kernel name fragments of each group, matched in this order
+GROUPS = {
+    "hand-written K1-K4": ("census_sad", "xwarp", "warp2d"),
+    "convolutions/GEMM": ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
+                          "fft", "winograd", "sm90_", "cutlass"),
+    "gather/scatter/index": ("index", "gather", "scatter"),
+    "sort": ("sort", "radix"),
+    "reductions": ("reduce",),
+    "copies/cat/pad": ("copy", "cat", "pad"),
+    "optimizer": ("adam", "multi_tensor", "foreach"),
+}
+
+
+def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
+    """Phases 10-14 (DIS-MF). Returns the launch counts of the MF path
+    (phases 10-12)."""
+    import copy
+    import logging
+    import torch
+    from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.data import (SyntheticSource, batch_to_torch,
+                                             make_track_batch)
+    from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.serve import TrackDisparityServer
+    from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
+                                              make_mf_eval_step,
+                                              make_mf_train_step)
+    from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
+    from depthinspace_tpu_torch.train.steps import _mf_forward
+
+    def fusenet(dtype, seed):
+        return init_fusenet_(FuseNet((H, W), settings.K, TL,
+                                     compute_dtype=dtype),
+                             torch.Generator().manual_seed(seed))
+
+    def delta(before):
+        return {k: kernels.launches[k] - before[k] for k in before}
+
+    # -- 10. mf serve -----------------------------------------------------
+    mf16 = fusenet(torch.bfloat16, SEED + 4)
+    kernels.reset_launches()                     # the MF path starts here
+    srv = TrackDisparityServer(sf_model, mf16, imsize=(H, W), K=settings.K,
+                               max_tracks=MF_TRACKS, device=dev)
+    mv = lambda a: np.ascontiguousarray(np.moveaxis(a, 1, 0))
+    req = (mv(mf_np.im), mv(mf_np.ambient), mv(mf_np.R), mv(mf_np.t),
+           np.ascontiguousarray(np.moveaxis(mf_np.flow, 2, 0)))
+    out = srv.infer(*(a[:3] for a in req))
+    check(out.shape == (3, TL, H, W), f"mf serve output shape {out.shape}")
+    check(np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 128.0,
+          f"mf serve output outside [0, 128]: {out.min()} .. {out.max()}")
+    before = dict(kernels.launches)
+    srv.infer(*req)
+    per_bucket = delta(before)
+    print(f"[mf serve] launches for one bucket of {MF_TRACKS} tracks: "
+          f"{per_bucket}")
+    for name, n in per_bucket.items():
+        want = {"warp2d_fwd": 1, "warp2d_pairs_fwd": 8}.get(name, 0)
+        check(n == want, f"mf serve: {n} launches of {name}, expected {want}")
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.infer(*(a[:3] for a in req))
+    ragged = 3 * reps / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.infer(*req)
+    full_s = (time.perf_counter() - t0) / reps
+    print(f"[mf serve] out {out.shape} in [{out.min():.3f}, {out.max():.3f}]"
+          f" px; {ragged:.2f} tracks/s on 3-track requests (bucket 4), "
+          f"{MF_TRACKS / full_s:.2f} tracks/s on {MF_TRACKS}-track requests "
+          f"({full_s * 1e3:.1f} ms each); FuseNet bf16, DispNet f32, TF32 "
+          f"off; {smi}")
+
+    # -- 11. mf eval ------------------------------------------------------
+    mfb = batch_to_torch(mf_np, dev)
+    for flow_source in ("file", "pred"):
+        step = make_mf_eval_step(mf16, make_loss_context(
+            settings, TL, device=dev, flow_source=flow_source))
+        disp_u16, comps = step(mfb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            disp_u16, comps = step(mfb)
+        comps_np = comps.cpu().numpy()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        check(disp_u16.shape == (TL, MF_TRACKS, H, W), "mf eval disp0 shape")
+        check(np.isfinite(comps_np).all() and (comps_np > 0).all(),
+              f"mf eval components {comps_np}")
+        print(f"[mf eval] flow_source={flow_source}: components "
+              f"{np.array2string(comps_np, precision=6)}; {ms:.1f} ms/step "
+              f"(tl={TL}, bs={MF_TRACKS}, bf16)")
+    path = dict(kernels.launches)
+
+    # -- 12. mf train -----------------------------------------------------
+    mf_train = fusenet(torch.bfloat16, SEED + 5)
+    start_sd = copy.deepcopy(mf_train.state_dict())
+    ctx_t = make_loss_context(settings, TL, device=dev)
+    state = TrainState.create(mf_train, 1e-4, seed=SEED, device=dev)
+    train_step = make_mf_train_step(mf_train, ctx_t, state)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    totals, times = [], []
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = train_step(mfb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        comps_np = comps.cpu().numpy()
+        check(np.isfinite(comps_np).all(), f"mf train components {comps_np}")
+        totals.append(float(comps_np.sum()))
+        if i >= 6 and totals[-1] < totals[0]:
+            break
+    steps = len(totals)
+    counts_t = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = float(np.median(times[1:]))
+    print(f"[mf train] {MF_TRACKS} tracks x {TL} frames {H}x{W}, FuseNet "
+          f"bf16 4 blocks x 32 ch, no remat, accum 1, Adam(1e-4): "
+          f"{step_ms:.1f} ms/step (median of {steps - 1} after a warm step; "
+          f"min {min(times[1:]):.1f}, max {max(times[1:]):.1f}); first step "
+          f"{times[0]:.1f} ms; peak {peak:.2f} GiB; {smi}")
+    print(f"[mf train] total loss {totals[0]:.6f} at step 0 -> "
+          f"{totals[-1]:.6f} at step {steps - 1}; components "
+          f"{np.array2string(comps_np, precision=5)}")
+    check(totals[-1] < totals[0], "the MF train loss did not fall")
+    print(f"[mf train] launches over {steps} steps: {counts_t}")
+    for name, per in PER_MF_STEP.items():
+        check(counts_t[name] == per * steps,
+              f"{name}: {counts_t[name]} launches in the MF train phase, "
+              f"expected {per} x {steps}")
+    path = {k: path[k] + counts_t[k] for k in path}  # the MF path ends here
+    busy = profile_step(train_step, mfb, "mf train bf16", GROUPS)
+    print(f"[mf train] device busy {busy:.2f} of {step_ms:.2f} ms/step: idle "
+          f"share {max(0.0, 1 - busy / step_ms):.3f}")
+
+    for label, dtype, accum in (("f32", torch.float32, 1),
+                                ("bf16 accum_steps=2", torch.bfloat16, 2)):
+        m = FuseNet((H, W), settings.K, TL, compute_dtype=dtype)
+        m.load_state_dict(start_sd)
+        st = TrainState.create(m, 1e-4, seed=SEED, device=dev)
+        step = make_mf_train_step(m, ctx_t, st, accum_steps=accum)
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = step(mfb).cpu().numpy()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(c).all(), f"mf train {label} components {c}")
+        print(f"[mf train] {label}: {np.median(ts[1:]):.1f} ms/step (median "
+              f"of 3 after a warm step); peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"components {np.array2string(c, precision=5)}")
+        del m, st, step
+    del state, train_step, mf_train, srv
+    torch.cuda.empty_cache()
+
+    # -- 13. mf parity: card vs CPU, eval and one train step at bs = 1 ----
+    b1 = make_track_batch(settings, tl=TL, bs=1, seed=SEED + 21,
+                          primary_noise=0.5)
+    mf_cpu = fusenet(torch.float32, SEED + 6).eval()
+    mf_gpu = copy.deepcopy(mf_cpu).to(dev)
+    ctx_gpu = make_loss_context(settings, TL, device=dev)
+    ctx_cpu = make_loss_context(settings, TL, device="cpu")
+    b1_gpu, b1_cpu = batch_to_torch(b1, dev), batch_to_torch(b1, "cpu")
+    d_gpu, c_gpu = make_mf_eval_step(mf_gpu, ctx_gpu)(b1_gpu)
+    t0 = time.perf_counter()
+    d_cpu, c_cpu = make_mf_eval_step(mf_cpu, ctx_cpu)(b1_cpu)
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        fd = float((_mf_forward(mf_gpu, b1_gpu, ctx_gpu).cpu()
+                    - _mf_forward(mf_cpu, b1_cpu, ctx_cpu)).abs().max())
+    c_gpu, c_cpu = c_gpu.cpu().numpy(), c_cpu.numpy()
+    rel = np.abs(c_gpu - c_cpu) / np.abs(c_cpu)
+    dd = np.abs(d_gpu.cpu().numpy().astype(np.int64)
+                - d_cpu.numpy().astype(np.int64))
+    print(f"[mf parity] eval bs=1 f32 {H}x{W}: components card "
+          f"{np.array2string(c_gpu, precision=7)} cpu "
+          f"{np.array2string(c_cpu, precision=7)}; relative diff "
+          f"{np.array2string(rel, precision=2)}; disparity max diff "
+          f"{fd:.3g} px; disp0 u16 max diff {dd.max()}, unequal on "
+          f"{np.mean(dd > 0):.5f}; cpu eval {cpu_s:.1f} s")
+    # as the SF eval parity: photometric and smoothness rtol 1e-3,
+    # geometric rtol 1e-2 (its masks are thresholds). The disparity within
+    # 1e-3 px; its u16 x256 quantization within 1 unit, and a float
+    # difference d flips a rounding edge on a share ~256 d of the pixels:
+    # at most 1 % of them (the same neighbour choices on both devices, the
+    # convolutions summed in other orders)
+    check((rel[:2] <= 1e-3).all() and rel[2] <= 1e-2,
+          f"card and CPU MF components differ: {rel}")
+    check(fd <= 1e-3 and dd.max() <= 1 and np.mean(dd > 0) <= 1e-2,
+          f"card and CPU MF disp0 differ: {fd} px, {dd.max()} units on "
+          f"{np.mean(dd > 0)}")
+    del mf_gpu
+
+    def one_step(d):
+        m = copy.deepcopy(mf_cpu).to(d)
+        st = TrainState.create(m, 1e-4, seed=SEED, device=d)
+        t0 = time.perf_counter()
+        comps = make_mf_train_step(m, make_loss_context(settings, TL,
+                                                        device=d), st)(
+            batch_to_torch(b1, d)).cpu().numpy()
+        print(f"[mf train parity] {d.type} step {time.perf_counter() - t0:.1f} s")
+        return comps, {k: p.grad.detach().cpu().double()
+                       for k, p in m.named_parameters()}
+
+    c_card, g_card = one_step(dev)
+    _, g_card2 = one_step(dev)
+    c_cpu, g_cpu = one_step(torch.device("cpu"))
+    rel_c = np.abs(c_card - c_cpu) / np.abs(c_cpu)
+    rel_all, rel_g = grad_diff(g_card, g_cpu)
+    self_all, self_g = grad_diff(g_card2, g_card)
+    worst = max(rel_g, key=rel_g.get)
+    print(f"[mf train parity] components relative diff "
+          f"{np.array2string(rel_c, precision=2)}; gradients card vs CPU: "
+          f"relative L2 {rel_all:.3g} over all parameters; per tensor max "
+          f"{rel_g[worst]:.3g} ({worst}), median "
+          f"{np.median(list(rel_g.values())):.3g} over {len(rel_g)} tensors; "
+          f"card vs card: {self_all:.3g} over all, per tensor max "
+          f"{max(self_g.values()):.3g}")
+    # the SF train parity's limits: components as the eval parity; the whole
+    # gradient within 1e-3 relative L2, each tensor within 2e-2
+    check((rel_c[:2] <= 1e-3).all() and rel_c[2] <= 1e-2
+          and rel_c[3] <= 1e-3, f"card and CPU MF train components differ: "
+          f"{rel_c}")
+    check(rel_all <= 1e-3 and rel_g[worst] <= 2e-2,
+          f"card and CPU MF gradients differ: all {rel_all}, {worst} "
+          f"{rel_g[worst]}")
+
+    # -- 14. mf worker: train, resume, retest -----------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        cfg = RunConfig(data_dir=Path(tmp), output_dir=Path(tmp),
+                        architecture="multi_frame", epochs=1,
+                        train_batch_size=2, test_batch_size=2,
+                        max_train_iter=2, num_workers=4, seed=SEED)
+        source = SyntheticSource(settings, 8, seed=SEED + 30,
+                                 primary_noise=0.5)
+        t0 = time.perf_counter()
+        MultiFrameWorker(cfg, device=dev, source=source).do("retrain")
+        exp = Path(tmp) / "multi_frame"
+        names = sorted(p.name for p in exp.iterdir())
+        check({"metrics.json", "state", "net_0000.params", "train.log",
+               "state_set_simple_best"} <= set(names),
+              f"mf worker artifacts {names}")
+        m0 = json.loads((exp / "metrics.json").read_text())
+        loss0 = m0["0"]["test"]["0"]["loss"]
+        cfg.epochs = 2
+        MultiFrameWorker(cfg, device=dev, source=source).do("resume")
+        m1 = json.loads((exp / "metrics.json").read_text())
+        check(sorted(m1) == ["0", "1"], f"mf resumed epochs {sorted(m1)}")
+        check("Resumed from epoch 0" in (exp / "train.log").read_text(),
+              "the resumed MF worker did not start at epoch 1")
+        MultiFrameWorker(cfg, device=dev, source=source).do("retest",
+                                                            epoch=0)
+        again = json.loads((exp / "metrics.json").read_text())["0"]["test"][
+            "0"]["loss"]
+        rel_r = np.abs(np.array(again) - loss0) / np.abs(loss0)
+        for h in list(logging.root.handlers):
+            h.close()
+            logging.root.removeHandler(h)
+        print(f"[mf worker] {names}; epoch 0 test: loss {sum(loss0):.5f}, "
+              f"dist2_mean {m0['0']['test']['0']['dist2_mean']:.3f}; resumed "
+              f"at epoch 1; retest of epoch 0 within {rel_r.max():.2g} "
+              f"relative; {time.perf_counter() - t0:.1f} s")
+        check(rel_r.max() <= 1e-4, f"MF retest of epoch 0 differs: {rel_r}")
+    print(f"[mf] kernel launches on the MF path (phases 10-12): {path}")
+    for name in PER_MF_STEP:
+        if name.startswith("warp2d_v1"):
+            continue
+        check(path[name] > 0, f"{name} never launched on the MF path")
+    return path
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 from ``config.json`` (OUTPUT_DIR, DATA_DIR, ...) and the hyperparameters of
 the CLI (``utils/args.py``) in one dataclass. It has the JAX package's
 fields that this package uses; the CLI flags for machinery it does not have
-(the device mesh, the wire cache, the device metric, FuseNet) are parsed and
+(the device mesh, the wire cache, the device metric) are parsed and
 dropped.
 """
 
@@ -44,7 +44,9 @@ class RunConfig:
     num_workers: int = 4
     # options
     use_pseudo_gt: bool = False
-    accum_steps: int = 0                    # 0 = auto (1 for DIS-SF)
+    accum_steps: int = 0                    # 0 = auto (Worker._resolve_accum)
+    mf_dtype: str = "bfloat16"              # FuseNet compute dtype
+    mf_remat: bool = False                  # checkpoint FuseNet's blocks
     device_augment: bool = True
     test_frequency: int = 1                 # eval every N epochs
     flow_source: str = "file"               # file | rigid | pred

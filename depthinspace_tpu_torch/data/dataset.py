@@ -7,6 +7,7 @@
   <DATA_DIR>/<sample>/frames.hdf5   im/ambient/grad/disp (4,1,H,W), R (4,3,3),
                                     t (4,3) [+ sgm_disp for real data]
   <DATA_DIR>/<sample>/flow.hdf5     flow_{i}{j} (1,2,H,W), i != j
+  <DATA_DIR>/<sample>/single_frame_disp.hdf5  disp (4,1,H,W)  (DIS-SF primary)
   <DATA_DIR>/<sample>/multi_frame_disp.hdf5   disp (4,1,H,W)  (pseudo GT)
 
 with the same per-index RNG (a training sample takes a random permutation
@@ -51,8 +52,8 @@ class TrackDataset:
 
     def __init__(self, settings: Settings, sample_paths: Sequence[str],
                  track_length: int = 4, train: bool = True,
-                 load_flow: bool = False, load_pseudo_gt: bool = False,
-                 data_type: str = "synthetic"):
+                 load_flow: bool = False, load_primary: bool = False,
+                 load_pseudo_gt: bool = False, data_type: str = "synthetic"):
         if track_length > 4:
             raise ValueError("track_length must be at most 4")
         self.settings = settings
@@ -60,6 +61,7 @@ class TrackDataset:
         self.track_length = track_length
         self.train = train
         self.load_flow = load_flow
+        self.load_primary = load_primary
         self.load_pseudo_gt = load_pseudo_gt
         self.data_type = data_type
         self.current_epoch = 0
@@ -102,6 +104,10 @@ class TrackDataset:
                             fl = np.asarray(f[f"flow_{t0}{t1}"])  # (1,2,H,W)
                             flow[i0, i1] = np.moveaxis(fl[0], 0, -1)
             ret["flow"] = flow
+        if self.load_primary:
+            with h5py.File(os.path.join(path, "single_frame_disp.hdf5"),
+                           "r") as f:
+                ret["primary_disp"] = frames(f, "disp")
         if self.load_pseudo_gt:
             with h5py.File(os.path.join(path, "multi_frame_disp.hdf5"),
                            "r") as f:
@@ -111,14 +117,18 @@ class TrackDataset:
 
 class SyntheticSource:
     """In-memory synthetic samples in place of a dataset directory: sample
-    ``i`` is ``make_track_batch(settings, tl=4, bs=1, seed=seed + i)``, made
-    on first use and kept (the datasets of every split and every worker
-    built on this source share them)."""
+    ``i`` is ``make_track_batch(settings, tl=4, bs=1, seed=seed + i,
+    primary_noise=primary_noise)``, made on first use and kept (the datasets
+    of every split and every worker built on this source share them). With
+    ``primary_noise`` the samples carry the stand-in primary disparity that
+    DIS-MF needs in place of a presaved DIS-SF prediction."""
 
-    def __init__(self, settings: Settings, n_samples: int, seed: int = 0):
+    def __init__(self, settings: Settings, n_samples: int, seed: int = 0,
+                 primary_noise: float | None = None):
         self.settings = settings
         self.n_samples = n_samples
         self.seed = seed
+        self.primary_noise = primary_noise
         self._cache: dict = {}
         self._lock = threading.Lock()
 
@@ -127,7 +137,8 @@ class SyntheticSource:
             b = self._cache.get(i)
         if b is None:
             b = make_track_batch(self.settings, tl=4, bs=1,
-                                 seed=self.seed + i)
+                                 seed=self.seed + i,
+                                 primary_noise=self.primary_noise)
             with self._lock:
                 self._cache[i] = b
         return b
@@ -139,9 +150,13 @@ class SyntheticTrackDataset:
 
     def __init__(self, source: SyntheticSource, sample_ids: Sequence[int],
                  track_length: int = 4, train: bool = True,
-                 load_flow: bool = True):
+                 load_flow: bool = True, load_primary: bool = False):
         if track_length > 4:
             raise ValueError("track_length must be at most 4")
+        if load_primary and source.primary_noise is None:
+            raise ValueError("the source makes no primary disparity: give "
+                             "it primary_noise")
+        self.load_primary = load_primary
         self.source = source
         self.sample_ids = list(sample_ids)
         self.track_length = track_length
@@ -159,6 +174,8 @@ class SyntheticTrackDataset:
                "disp": b.disp_gt[ti, 0], "R": b.R[ti, 0], "t": b.t[ti, 0]}
         if self.load_flow:
             ret["flow"] = b.flow[ti][:, ti][:, :, 0]
+        if self.load_primary:
+            ret["primary_disp"] = b.primary_disp[ti, 0]
         return ret
 
 
@@ -175,6 +192,7 @@ def collate(samples: Sequence[dict]) -> Batch:
         flow = np.stack([s["flow"] for s in samples], axis=2)
     return Batch(im=stack("im"), ambient=stack("ambient"),
                  disp_gt=stack("disp"), R=stack("R"), t=stack("t"), flow=flow,
+                 primary_disp=stack("primary_disp"),
                  pseudo_gt=stack("pseudo_gt"), sgm_disp=stack("sgm_disp"))
 
 

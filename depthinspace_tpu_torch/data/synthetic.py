@@ -13,7 +13,9 @@ that the forward path needs, without cv2 or h5py:
   rigid optical flow of a static scene (fixture.py:154-168);
 - ``make_track_batch``: one track-major :class:`Batch` whose IR image is the
   pattern shifted by the disparity over a smooth ambient, with all-pairs
-  rigid flow.
+  rigid flow and, on request, a stand-in for the DIS-SF primary disparity
+  (the GT plus seeded Gaussian noise, clipped at 0.1, as the JAX package's
+  tests stand in for a presaved SF prediction).
 """
 
 from __future__ import annotations
@@ -135,14 +137,20 @@ def _shift_rows(pattern: np.ndarray, disp: np.ndarray) -> np.ndarray:
 
 
 def make_track_batch(settings, tl: int = 4, bs: int = 1, seed: int = 0,
-                     disp_range=(10.0, 80.0), blend: float = 0.6) -> Batch:
-    """One synthetic track batch (numpy, float32) with exact rigid flow."""
+                     disp_range=(10.0, 80.0), blend: float = 0.6,
+                     max_angle: float = 0.004,
+                     primary_noise: float | None = None) -> Batch:
+    """One synthetic track batch (numpy, float32) with exact rigid flow.
+    ``max_angle=0`` gives translation-only poses (R = I). With
+    ``primary_noise`` (px) the batch carries a stand-in primary disparity,
+    max(GT + primary_noise * N(0, 1), 0.1), drawn after everything else
+    from the same seed."""
     H, W = settings.imsize
     rng = np.random.RandomState(seed)
     disp = smooth_disparity(rng, (tl, bs, H, W), *disp_range)
     amb = np.clip(_upsample_bilinear(rng.uniform(0.2, 0.9, (tl, bs, 6, 6)),
                                      H, W), 0.0, 1.0)
-    R, t = random_poses(rng, tl, bs)
+    R, t = random_poses(rng, tl, bs, max_angle=max_angle)
     pat = settings.pattern_gray()
     im = np.empty((tl, bs, H, W), np.float32)
     for i in range(tl):
@@ -158,5 +166,9 @@ def make_track_batch(settings, tl: int = 4, bs: int = 1, seed: int = 0,
                 for b in range(bs):
                     flow[i, j, b] = rigid_flow(depth[i, b], K, R[i, b],
                                                t[i, b], R[j, b], t[j, b])
+    primary = None
+    if primary_noise is not None:
+        primary = np.maximum(disp + primary_noise * rng.randn(*disp.shape),
+                             0.1).astype(np.float32)
     return Batch(im=np.clip(im, 0.0, 1.0), ambient=amb.astype(np.float32),
-                 disp_gt=disp, R=R, t=t, flow=flow)
+                 disp_gt=disp, R=R, t=t, flow=flow, primary_disp=primary)

@@ -1,3 +1,4 @@
 from .photometric import photometric_loss
 from .smoothness import smoothness_loss
-from .geometric import CameraGeometry, geometric_loss_sf, pairwise_indices
+from .geometric import (CameraGeometry, geometric_loss_mf, geometric_loss_sf,
+                        pairwise_indices)

@@ -1,13 +1,17 @@
-"""Single-frame multi-view flow-consistency (geometric) loss, port of
+"""Multi-view flow-consistency (geometric) losses, port of
 ``depthinspace_tpu/losses/geometric.py`` (``CameraGeometry``,
-``pairwise_indices``, ``_ordered_directions``, ``geometric_loss_sf``).
+``pairwise_indices``, ``_ordered_directions``, ``geometric_loss_sf``,
+``geometric_loss_mf``).
 
 For an ordered view pair (a -> b): unproject view-a depth with pose a and
 project it into view b (depth d1); sample view-b depth at the flow-displaced
 coordinates (K3, zeros padding) -> depth10; diff = clamp(|d1 - depth10|, 0,
 clamp). The forward-backward flow test (fb) and the ambient consistency
 test (vc) mask the pixels; each direction is a masked mean of its own, and
-the loss is their sum over all 2*C(tl,2) directions.
+the loss is their sum over all 2*C(tl,2) directions. The multi-frame
+variant clamps nothing and adds a third mask (rf): view b's primary depth,
+projected into view a and flow-warped back, must land within 1 px of where
+it started.
 """
 
 from __future__ import annotations
@@ -69,6 +73,25 @@ def _ordered_directions(track_length: int):
     return dirs
 
 
+def _directions(depth, R, t, flow, amb):
+    """The per-direction stacks (nd*N, ...) of both losses."""
+    dirs = _ordered_directions(depth.shape[0])
+    a_idx = [a for a, _ in dirs]
+    b_idx = [b for _, b in dirs]
+
+    def gather_dir(x, idx):
+        return torch.cat([x[i] for i in idx], dim=0)
+
+    return dict(
+        dirs=dirs, a_idx=a_idx, b_idx=b_idx,
+        d0=gather_dir(depth, a_idx), d1_=gather_dir(depth, b_idx),
+        Ra=gather_dir(R, a_idx), ta=gather_dir(t, a_idx),
+        Rb=gather_dir(R, b_idx), tb=gather_dir(t, b_idx),
+        f0=torch.cat([flow[a, b] for a, b in dirs], dim=0).detach(),
+        f1=torch.cat([flow[b, a] for a, b in dirs], dim=0),
+        a0=gather_dir(amb, a_idx), a1=gather_dir(amb, b_idx))
+
+
 def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
                       clamp: float = 0.1):
     """Sum of the SF direction losses.
@@ -77,32 +100,19 @@ def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
     flow: (tl, tl, N, H, W, 2) with flow[i, j] the flow from frame i to j.
     All ordered directions are stacked and go through one K3 call per
     channel count (1: the depth sample, 3: backward flow + ambient)."""
-    dirs = _ordered_directions(depth.shape[0])
-    nd = len(dirs)
-    N = depth.shape[1]
+    g = _directions(depth, R, t, flow, amb)
+    nd, N = len(g["dirs"]), depth.shape[1]
     Hh, Ww = cam.height, cam.width
-    a_idx = [a for a, _ in dirs]
-    b_idx = [b for _, b in dirs]
 
-    def gather_dir(x, idx):
-        return torch.cat([x[i] for i in idx], dim=0)
-
-    d0 = gather_dir(depth, a_idx)                   # (nd*N, H, W)
-    d1_ = gather_dir(depth, b_idx)
-    Ra, ta = gather_dir(R, a_idx), gather_dir(t, a_idx)
-    Rb, tb = gather_dir(R, b_idx), gather_dir(t, b_idx)
-    f0 = torch.cat([flow[a, b] for a, b in dirs], dim=0)
-    f1 = torch.cat([flow[b, a] for a, b in dirs], dim=0)
-    a0 = gather_dir(amb, a_idx)
-    a1 = gather_dir(amb, b_idx)
-
-    _, d1 = reproject(d0, cam.ray, cam.K, Ra, ta, Rb, tb)
+    _, d1 = reproject(g["d0"], cam.ray, cam.K, g["Ra"], g["ta"], g["Rb"],
+                      g["tb"])
     d1 = d1.reshape(nd * N, Hh, Ww)
 
     # flow is data: only the depth sample would carry a gradient
-    f0 = f0.detach()
-    depth10 = flow_warp(d1_[..., None], f0)[..., 0]
-    sampled = flow_warp(torch.cat([f1, a1[..., None]], dim=-1).detach(), f0)
+    f0 = g["f0"]
+    depth10 = flow_warp(g["d1_"][..., None], f0)[..., 0]
+    sampled = flow_warp(torch.cat([g["f1"], g["a1"][..., None]],
+                                  dim=-1).detach(), f0)
     flow10 = sampled[..., 0:2]
     amb10 = sampled[..., 2]
 
@@ -113,10 +123,52 @@ def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
     fb = (torch.sum((f0 + flow10) ** 2, dim=-1)
           < 0.5 + 0.02 * (torch.sum(f0 ** 2, dim=-1)
                           + torch.sum(flow10 ** 2, dim=-1)))
-    vc = torch.abs(a0 - amb10) < 0.01
+    vc = torch.abs(g["a0"] - amb10) < 0.01
     mask = (fb.to(diff.dtype) * vc.to(diff.dtype)).detach()
 
     # per-direction masked means (the reference normalizes per direction)
+    diff = (diff * mask).reshape(nd, -1).sum(dim=1)
+    msum = mask.reshape(nd, -1).sum(dim=1)
+    return torch.sum(diff / (msum + 1e-8))
+
+
+def geometric_loss_mf(cam: CameraGeometry, depth, R, t, flow, amb,
+                      primary_depth):
+    """Sum of the MF direction losses: the SF directions without the clamp,
+    with the primary-depth round-trip mask rf.
+
+    depth/amb/primary_depth: (tl, N, H, W); R: (tl, N, 3, 3); t: (tl, N, 3);
+    flow: (tl, tl, N, H, W, 2). One K3 call with C=1 (the depth sample, the
+    only one with a gradient) and one with C=5 (backward flow, ambient and
+    the projected primary pixel)."""
+    g = _directions(depth, R, t, flow, amb)
+    nd, N = len(g["dirs"]), depth.shape[1]
+    Hh, Ww = cam.height, cam.width
+    pd1 = torch.cat([primary_depth[i] for i in g["b_idx"]], dim=0).detach()
+
+    _, d1 = reproject(g["d0"], cam.ray, cam.K, g["Ra"], g["ta"], g["Rb"],
+                      g["tb"])
+    d1 = d1.reshape(nd * N, Hh, Ww)
+    uv0, _ = reproject(pd1, cam.ray, cam.K, g["Rb"].detach(),
+                       g["tb"].detach(), g["Ra"].detach(), g["ta"].detach())
+    uv0 = uv0.reshape(nd * N, Hh, Ww, 2)
+
+    f0 = g["f0"]
+    depth10 = flow_warp(g["d1_"][..., None], f0)[..., 0]
+    sampled = flow_warp(torch.cat([g["f1"], g["a1"][..., None], uv0],
+                                  dim=-1).detach(), f0)
+    flow10 = sampled[..., 0:2]
+    amb10 = sampled[..., 2]
+    warped_uv0 = sampled[..., 3:5]
+
+    diff = torch.abs(d1 - depth10)
+    fb = (torch.sum((f0 + flow10) ** 2, dim=-1)
+          < 0.5 + 0.02 * (torch.sum(f0 ** 2, dim=-1)
+                          + torch.sum(flow10 ** 2, dim=-1)))
+    vc = torch.abs(g["a0"] - amb10) < 0.01
+    rf = torch.sum((warped_uv0 - cam.grid[None]) ** 2, dim=-1) < 1.0
+    mask = (fb.to(diff.dtype) * vc.to(diff.dtype) * rf.to(diff.dtype)).detach()
+
     diff = (diff * mask).reshape(nd, -1).sum(dim=1)
     msum = mask.reshape(nd, -1).sum(dim=1)
     return torch.sum(diff / (msum + 1e-8))

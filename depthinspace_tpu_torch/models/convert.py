@@ -1,5 +1,6 @@
-"""Weights of the flax ``DispNet`` (``depthinspace_tpu/models/dispnet.py``)
-as a ``state_dict`` for this package's :class:`DispNet`, and back.
+"""Weights of the flax ``DispNet`` and ``FuseNet``
+(``depthinspace_tpu/models/{dispnet,fusenet}.py``) as a ``state_dict`` for
+this package's models, and back.
 
 The flax tree, with modules named in creation order, holds 64 leaves:
 
@@ -13,6 +14,13 @@ Conv kernels are HWIO and become OIHW. ConvTranspose kernels are
 (a flax "SAME" transposed conv correlates with the unflipped kernel).
 ``flax_tree_from_dispnet_state_dict`` undoes both, so the port can write
 ``net_%04d.params`` files that the JAX package reads.
+
+The port's FuseNet names its submodules after the flax tree (the frame-major
+and the frame-packed flax FuseNet have the same tree), so its weights map by
+name: ``block0/conv3d_1/Dense_0/kernel`` is ``block0.conv3d_1.Dense_0.
+weight``. Conv kernels HWIO become OIHW, Dense kernels (in, out) become
+(out, in), GroupNorm's scale is the weight; the head's ``predict_disp/
+Conv_0`` is ``predict_disp.conv``.
 """
 
 from __future__ import annotations
@@ -92,4 +100,63 @@ def flax_tree_from_dispnet_state_dict(sd: Mapping) -> dict:
         node["kernel"] = np.ascontiguousarray(k)
         node["bias"] = sd[prefix + ".bias"].detach().cpu().numpy().astype(
             np.float32)
+    return {"params": params}
+
+
+_FUSENET_RENAME = {("predict_disp", "Conv_0"): ("predict_disp", "conv")}
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def fusenet_state_dict_from_flax(tree: Mapping,
+                                 model: torch.nn.Module) -> dict:
+    """``tree``: the flax variables of FuseNet as nested dicts of numpy
+    arrays, with or without the top-level "params" key; ``model``: the port's
+    FuseNet they are for (its block count and widths). Raises if the tree's
+    leaves are not the model's parameters."""
+    p = tree["params"] if "params" in tree else tree
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(p):
+        *mods, name = path
+        mods = list(_FUSENET_RENAME.get(tuple(mods), mods))
+        a = np.asarray(leaf, np.float32)
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        key = "bias" if name == "bias" else "weight"
+        sd[".".join(mods + [key])] = torch.from_numpy(np.ascontiguousarray(a))
+    want = set(model.state_dict())
+    if set(sd) != want:
+        raise ValueError(
+            f"flax tree has {len(sd)} leaves, the port's FuseNet takes "
+            f"{len(want)}; not in the model: {sorted(set(sd) - want)[:5]}, "
+            f"missing: {sorted(want - set(sd))[:5]}")
+    return sd
+
+
+def flax_tree_from_fusenet_state_dict(sd: Mapping) -> dict:
+    """The inverse of :func:`fusenet_state_dict_from_flax`: the flax
+    variables {"params": {...}} as nested dicts of float32 numpy arrays."""
+    inverse = {v: k for k, v in _FUSENET_RENAME.items()}
+    params: dict = {}
+    for key, t in sd.items():
+        *mods, name = key.split(".")
+        mods = inverse.get(tuple(mods), tuple(mods))
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if name == "bias":
+            leaf = "bias"
+        elif a.ndim == 1:
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
     return {"params": params}

@@ -49,12 +49,19 @@ def reproject(depth0, ray, K, R0, t0, R1, t1):
     return project(unproject(depth0, ray, R0, t0), K, R1, t1)
 
 
+def _scalar_over(c: float, x: torch.Tensor) -> torch.Tensor:
+    """c / x as one rounded division, as JAX computes it (PyTorch's
+    ``c / x`` is ``x.reciprocal() * c``, rounded twice)."""
+    return torch.div(torch.tensor(c, dtype=x.dtype, device=x.device), x)
+
+
 def disp_to_depth(disp: torch.Tensor, focal_length: float,
                   baseline: float) -> torch.Tensor:
     """depth = baseline * f / (relu(disp) + 1e-12)."""
-    return (baseline * focal_length) / (torch.relu(disp) + 1e-12)
+    return _scalar_over(baseline * focal_length, torch.relu(disp) + 1e-12)
 
 
 def depth_to_disp(depth: torch.Tensor, focal_length: float,
                   baseline: float) -> torch.Tensor:
-    return (baseline * focal_length) / torch.clamp(depth, min=1e-12)
+    return _scalar_over(baseline * focal_length,
+                        torch.clamp(depth, min=1e-12))

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources have a plain C interface and are compiled with ``nvcc`` for
-``sm_90a`` into one shared library, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library is built at first use, from
-the sources in this checkout only, into ``build/kernels/<hash>/`` at the
-repository root; the hash covers the sources and the flags, so an edited
-source is rebuilt and an unchanged one is not.
+The sources have a plain C interface. Each is compiled with ``nvcc`` for
+``sm_90a`` into an object file, all of them at once in parallel, and the
+objects are linked into one shared library, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds). The library is built at first
+use, from the sources in this checkout only, into ``build/kernels/<hash>/``
+at the repository root; the hash covers the sources and the flags, so an
+edited source is rebuilt and an unchanged one is not.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its output with ``torch.empty``, launches on the
@@ -28,16 +29,22 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu")
+SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu", "warp2d_pairs.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Launches of each kernel since the last reset_launches().
+# Launches of each kernel since the last reset_launches(). warp2d_v1_* are
+# K3's kernels reached through the K5 entry point (ops/resample.py::
+# warp2d_v1), counted on their own.
 launches = {"census_sad_fwd": 0, "xwarp_fwd": 0, "warp2d_fwd": 0,
-            "census_sad_bwd": 0, "xwarp_bwd": 0, "warp2d_bwd": 0}
+            "warp2d_pairs_fwd": 0, "warp2d_v1_fwd": 0,
+            "census_sad_bwd": 0, "xwarp_bwd": 0, "warp2d_bwd": 0,
+            "warp2d_pairs_bwd": 0, "warp2d_v1_bwd": 0}
 
 _lib = None
+# device copies of the static pair tables of warp2d_pairs, per call site
+_src_tables: dict = {}
 
 
 def reset_launches() -> None:
@@ -64,7 +71,8 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library unless it is already built.
+    """Compile the library unless it is already built: one ``nvcc -c`` per
+    source, all started together, then one link.
 
     Returns (path, seconds spent compiling; 0.0 when it was built before).
     The compiler's ``-Xptxas -v`` report lands in ``ptxas.log`` beside it."""
@@ -72,16 +80,36 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"libdis_kernels.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for name in SOURCES:
+        obj = so.parent / f"{Path(name).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    tmp = so.with_name(f"libdis_kernels.{tag}.so")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}): "
+                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    (so.parent / "ptxas.log").write_text(res.stdout + res.stderr)
+    (so.parent / "ptxas.log").write_text("".join(log))
     os.replace(tmp, so)
     return so, seconds
 
@@ -109,17 +137,25 @@ def library() -> ctypes.CDLL:
         lib.dis_xwarp_bwd.restype = i32
         lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.dis_warp2d_bwd.restype = i32
+        lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                             i32, i32, i32, ptr]
+        lib.dis_warp2d_pairs_fwd.restype = i32
+        lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
+                                             i32, i32, i32, i32, i32, ptr]
+        lib.dis_warp2d_pairs_bwd.restype = i32
         lib.dis_error_string.argtypes = [i32]
         lib.dis_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, ndim: int) -> None:
+def _check(name: str, t: torch.Tensor, ndim: int,
+           dtypes: tuple = (torch.float32,)) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -254,24 +290,124 @@ def _warp2d_shapes(kernel: str, name: str, x: torch.Tensor,
     return M, H, W, C
 
 
-def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """K3: img (M, H, W, C), flow (M, H, W, 2) float32 -> (M, H, W, C)."""
-    M, H, W, C = _warp2d_shapes("warp2d_fwd", "img", img, flow)
+def _warp2d_fwd(kernel: str, img: torch.Tensor,
+                flow: torch.Tensor) -> torch.Tensor:
+    M, H, W, C = _warp2d_shapes(kernel, "img", img, flow)
     out = torch.empty_like(img)
     if out.numel():
-        _launch("warp2d_fwd", library().dis_warp2d_fwd, img.data_ptr(),
+        _launch(kernel, library().dis_warp2d_fwd, img.data_ptr(),
                 flow.data_ptr(), out.data_ptr(), M, H, W, C,
                 device=img.device)
     return out
+
+
+def _warp2d_bwd(kernel: str, flow: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    M, H, W, C = _warp2d_shapes(kernel, "g", g, flow)
+    grad = torch.empty_like(g)
+    if grad.numel():
+        _launch(kernel, library().dis_warp2d_bwd, flow.data_ptr(),
+                g.data_ptr(), grad.data_ptr(), M, H, W, C, device=g.device)
+    return grad
+
+
+def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """K3: img (M, H, W, C), flow (M, H, W, 2) float32 -> (M, H, W, C)."""
+    return _warp2d_fwd("warp2d_fwd", img, flow)
 
 
 def warp2d_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3 bwd: flow (M, H, W, 2), g (M, H, W, C) float32 -> grad wrt img
     (M, H, W, C); the flow gets none. Float atomics: the bits of a sum of
     three or more contributions vary from run to run."""
-    M, H, W, C = _warp2d_shapes("warp2d_bwd", "g", g, flow)
-    grad = torch.empty_like(g)
+    return _warp2d_bwd("warp2d_bwd", flow, g)
+
+
+def warp2d_v1_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """K5 (``warp_kernel.warp2d``, the K3 contract in float32): K3's kernel,
+    counted as warp2d_v1_fwd."""
+    return _warp2d_fwd("warp2d_v1_fwd", img, flow)
+
+
+def warp2d_v1_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5 bwd: K3 bwd's kernel, counted as warp2d_v1_bwd."""
+    return _warp2d_bwd("warp2d_v1_bwd", flow, g)
+
+
+_PAIR_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _src_table(kernel: str, src_idx, S: int, M: int,
+               device: torch.device) -> torch.Tensor:
+    """The static pair table as an int32 (M,) tensor on ``device``, checked
+    on the host (0 <= src[m] < S) and made once per table and device."""
+    key = (tuple(src_idx), device)
+    table = _src_tables.get(key)
+    if table is None:
+        src = key[0]
+        if len(src) != M:
+            raise ValueError(f"{kernel}: {len(src)} source indices for "
+                             f"{M} pairs")
+        if not all(isinstance(s, int) and 0 <= s < S for s in src):
+            raise ValueError(f"{kernel}: source indices must be ints in "
+                             f"[0, {S}), got {src}")
+        with torch.inference_mode(False):
+            table = torch.tensor(src, dtype=torch.int32, device=device)
+        _src_tables[key] = table
+    return table
+
+
+def _pairs_shapes(kernel: str, name: str, x: torch.Tensor, flow: torch.Tensor,
+                  rows: int) -> tuple[int, int, int, int]:
+    """x is feat (forward) or the output gradient (backward); ``rows`` is
+    its leading size S or M. Returns (M, H, W, C)."""
+    _check(name, x, 4, _PAIR_TYPES)
+    _check("flow", flow, 4)
+    _same_device(kernel, x, flow)
+    M = flow.shape[0]
+    _, H, W, C = x.shape
+    if tuple(flow.shape) != (M, H, W, 2) or x.shape[0] != rows:
+        raise ValueError(f"{kernel}: flow {tuple(flow.shape)} does not fit "
+                         f"{name} {tuple(x.shape)}")
+    _grid_fits(kernel, M, H)
+    if W * C >= 2 ** 31:
+        raise ValueError(f"{kernel}: a row's W*C elements must fit in int32")
+    return M, H, W, C
+
+
+def warp2d_pairs_fwd(feat: torch.Tensor, flow: torch.Tensor,
+                     src_idx) -> torch.Tensor:
+    """K4: out[m] = warp(feat[src_idx[m]], flow[m]). feat (S, H, W, C)
+    float32 or bfloat16, flow (M, H, W, 2) float32, src_idx a sequence of M
+    ints in [0, S) -> (M, H, W, C) in feat's dtype."""
+    S = feat.shape[0] if feat.dim() == 4 else 0
+    M, H, W, C = _pairs_shapes("warp2d_pairs_fwd", "feat", feat, flow, S)
+    src = _src_table("warp2d_pairs_fwd", src_idx, S, M, feat.device)
+    out = torch.empty((M, H, W, C), dtype=feat.dtype, device=feat.device)
+    if out.numel():
+        _launch("warp2d_pairs_fwd", library().dis_warp2d_pairs_fwd,
+                feat.data_ptr(), flow.data_ptr(), src.data_ptr(),
+                out.data_ptr(), M, H, W, C, int(feat.dtype == torch.bfloat16),
+                device=feat.device)
+    return out
+
+
+def warp2d_pairs_bwd(flow: torch.Tensor, src_idx, g: torch.Tensor,
+                     S: int) -> torch.Tensor:
+    """K4 bwd: flow (M, H, W, 2) float32, g (M, H, W, C) float32 or
+    bfloat16 -> grad wrt feat (S, H, W, C) in g's dtype, accumulated in
+    float32 over every pair of each source; the flow gets none. Float
+    atomics: the bits of a sum of three or more contributions vary from run
+    to run."""
+    M, H, W, C = _pairs_shapes("warp2d_pairs_bwd", "g", g, flow,
+                               flow.shape[0] if flow.dim() == 4 else -1)
+    src = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)
+    bf16 = g.dtype == torch.bfloat16
+    scratch = torch.empty((S, H, W, C), dtype=torch.float32, device=g.device)
+    grad = torch.empty_like(scratch, dtype=g.dtype) if bf16 else scratch
     if grad.numel():
-        _launch("warp2d_bwd", library().dis_warp2d_bwd, flow.data_ptr(),
-                g.data_ptr(), grad.data_ptr(), M, H, W, C, device=g.device)
+        _launch("warp2d_pairs_bwd", library().dis_warp2d_pairs_bwd,
+                flow.data_ptr(), src.data_ptr(), g.data_ptr(),
+                scratch.data_ptr(), grad.data_ptr() if bf16 else None, S, M,
+                H, W, C, int(bf16), device=g.device)
     return grad

@@ -1,10 +1,14 @@
-"""Image resampling of the losses: the pattern warp by disparity (K2) and
-the flow warp (K3). Port of ``depthinspace_tpu/ops/resample.py``.
+"""Image resampling: the pattern warp by disparity (K2), the flow warp (K3),
+the pair-indexed flow warp of FuseNet (K4) and the flow warp's other TPU
+entry point (K5, ``warp_kernel.warp2d``). Port of
+``depthinspace_tpu/ops/resample.py``.
 
 Each public function is a ``torch.autograd.Function`` that runs its CUDA
 kernels (forward and backward) on a CUDA tensor and their plain PyTorch
 versions on a CPU tensor; the plain versions sit beside them. As in the JAX
-package, the pattern and the flow are data: they get no gradient.
+package, the pattern, the flow and the pair table are data: they get no
+gradient. The JAX package's ``DIS_*`` switches between TPU kernel variants
+are not ported: each entry point has one kernel.
 """
 
 from __future__ import annotations
@@ -68,6 +72,30 @@ def warp2d_bwd_plain(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.autograd.grad(out, img, g)[0]
 
 
+def warp2d_pairs_plain(feat: torch.Tensor, flow: torch.Tensor,
+                       src_idx) -> torch.Tensor:
+    """Plain version of K4: out[m] = warp(feat[src_idx[m]], flow[m]), the
+    sources gathered with index_select and warped in float32 (or wider),
+    cast to feat's dtype. feat (S, H, W, C); flow (M, H, W, 2)."""
+    acc = torch.promote_types(feat.dtype, torch.float32)
+    src = torch.as_tensor(tuple(src_idx), dtype=torch.long,
+                          device=feat.device)
+    out = warp2d_plain(feat.index_select(0, src).to(acc), flow.to(acc))
+    return out.to(feat.dtype)
+
+
+def warp2d_pairs_bwd_plain(flow: torch.Tensor, src_idx, g: torch.Tensor,
+                           S: int) -> torch.Tensor:
+    """Plain version of K4 bwd: each pair's adjoint (warp2d_bwd_plain) in
+    float32 (or wider), summed into its source plane with index_add_, cast
+    to g's dtype. Returns (S, H, W, C)."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    src = torch.as_tensor(tuple(src_idx), dtype=torch.long, device=g.device)
+    per_pair = warp2d_bwd_plain(flow.to(acc), g.to(acc))
+    grad = torch.zeros((S, *g.shape[1:]), dtype=acc, device=g.device)
+    return grad.index_add_(0, src, per_pair).to(g.dtype)
+
+
 class XWarp(torch.autograd.Function):
     """K2 and K2 bwd; the gradient goes to disp only."""
 
@@ -109,6 +137,53 @@ class Warp2D(torch.autograd.Function):
         return kernels.warp2d_bwd(flow.contiguous(), g.contiguous()), None
 
 
+class Warp2DV1(torch.autograd.Function):
+    """K5 and K5 bwd on K3's kernels under their own launch counters; the
+    gradient goes to the image only."""
+
+    @staticmethod
+    def forward(ctx, img, flow):
+        ctx.save_for_backward(flow)
+        if img.device.type == "cpu":
+            return warp2d_plain(img, flow)
+        return kernels.warp2d_v1_fwd(img.contiguous(), flow.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (flow,) = ctx.saved_tensors
+        if flow.device.type == "cpu":
+            return warp2d_bwd_plain(flow, g), None
+        return kernels.warp2d_v1_bwd(flow.contiguous(), g.contiguous()), None
+
+
+class Warp2DPairs(torch.autograd.Function):
+    """K4 and K4 bwd; the gradient goes to feat only (the flow and the pair
+    table get None)."""
+
+    @staticmethod
+    def forward(ctx, feat, flow, src_idx):
+        ctx.save_for_backward(flow)
+        ctx.src_idx, ctx.n_src = src_idx, feat.shape[0]
+        if feat.device.type == "cpu":
+            return warp2d_pairs_plain(feat, flow, src_idx)
+        return kernels.warp2d_pairs_fwd(feat.contiguous(), flow.contiguous(),
+                                        src_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (flow,) = ctx.saved_tensors
+        if flow.device.type == "cpu":
+            grad = warp2d_pairs_bwd_plain(flow, ctx.src_idx, g, ctx.n_src)
+        else:
+            grad = kernels.warp2d_pairs_bwd(flow.contiguous(), ctx.src_idx,
+                                            g.contiguous(), ctx.n_src)
+        return grad, None, None
+
+
 def warp_pattern(pattern: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """Rectified pattern warp: sample the pattern at u' = u - disp with
     border clamp. pattern (H, W) or (N, H, W); disp (N, H, W)."""
@@ -119,3 +194,21 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Flow warp with zeros padding, out(p) = x(p + flow(p)). x (N, H, W, C),
     flow (N, H, W, 2), both float32."""
     return Warp2D.apply(x, flow.detach())
+
+
+def flow_warp_pairs(feat: torch.Tensor, flow: torch.Tensor,
+                    src_idx) -> torch.Tensor:
+    """Pair-indexed flow warp with zeros padding, out[m] = warp(feat[
+    src_idx[m]], flow[m]): feat (S, H, W, C) float32 or bfloat16, flow
+    (M, H, W, 2) float32, src_idx a static sequence of M ints in [0, S).
+    Returns (M, H, W, C) in feat's dtype; the pair-major stack of sources is
+    never built on the card."""
+    return Warp2DPairs.apply(feat, flow.detach(),
+                             tuple(int(s) for s in src_idx))
+
+
+def warp2d_v1(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The entry point of ``ops/pallas/warp_kernel.py::warp2d`` (K5): the
+    flow warp of :func:`flow_warp`, float32, unbounded like the CPU truth
+    (the TPU kernel drops integer offsets beyond +-max_shift)."""
+    return Warp2DV1.apply(img, flow.detach())

@@ -7,8 +7,8 @@ the affine normalization), NHWC layout at the public functions.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -65,12 +65,57 @@ def warp(x: torch.Tensor, flow: torch.Tensor,
                            padding=padding)
 
 
+_resize_taps: dict = {}
+
+
+def _taps(n_in: int, n_out: int, align_corners: bool, device):
+    """The two taps (i0, i1) and weights (1 - f, f) of each output row of a
+    1-D bilinear resize, as ``_interp_matrix`` of the JAX package builds
+    its rows (float64 positions, float32 fractions), on ``device``."""
+    key = (n_in, n_out, align_corners, torch.device(device))
+    taps = _resize_taps.get(key)
+    if taps is None:
+        if align_corners and n_out > 1:
+            src = np.linspace(0, n_in - 1, n_out)
+        else:
+            src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        src = np.clip(src, 0, n_in - 1)
+        i0 = np.floor(src).astype(np.int64)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        f = (src - i0).astype(np.float32)
+        # normal tensors even when first made under inference_mode: the
+        # indices are saved for the backward of a later training step
+        with torch.inference_mode(False):
+            as_t = lambda a: torch.from_numpy(a).to(device)
+            taps = (as_t(i0), as_t(i1), as_t((1 - f).astype(np.float32)),
+                    as_t(f))
+        _resize_taps[key] = taps
+    return taps
+
+
 def resize_bilinear(x: torch.Tensor, height: int, width: int,
                     align_corners: bool = True) -> torch.Tensor:
-    """Bilinear resize of an NHWC tensor, no anti-aliasing."""
+    """Bilinear resize of an NHWC tensor, no anti-aliasing: rows first,
+    then columns, each output the two-tap sum a * (1 - f) + b * f in
+    float32, returned in x's dtype. These are the JAX version's
+    interpolation-matrix products with their zero terms dropped, and the
+    same float32 roundings on every device."""
     N, H, W, C = x.shape
     if H == height and W == width:
         return x
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width),
-                        mode="bilinear", align_corners=align_corners)
-    return out.permute(0, 2, 3, 1)
+    x32 = x.float()
+    i0, i1, w0, w1 = _taps(H, height, align_corners, x.device)
+    y = x32[:, i0] * w0[:, None, None] + x32[:, i1] * w1[:, None, None]
+    i0, i1, w0, w1 = _taps(W, width, align_corners, x.device)
+    out = y[:, :, i0] * w0[:, None] + y[:, :, i1] * w1[:, None]
+    return out.to(x.dtype)
+
+
+def resize_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Resize a flow field (N, h, w, 2) and rescale its values by the size
+    ratio (u by width / w, v by height / h)."""
+    _, fh, fw, _ = flow.shape
+    out = resize_bilinear(flow, height, width, align_corners=True)
+    scale = torch.tensor([width / fw, height / fh], dtype=out.dtype,
+                         device=out.device)
+    return out * scale

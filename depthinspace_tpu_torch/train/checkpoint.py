@@ -7,7 +7,7 @@ same three artifacts in the experiment directory:
    ``torch.save`` format, the newest ``max_to_keep`` kept. (The JAX package
    writes orbax directories there, which this package cannot read.)
 2. ``state_set_<name>_best/``: the same, for the best epoch of a test set.
-3. ``net_%04d.params``: the DispNet weights in flax msgpack
+3. ``net_%04d.params``: the DispNet or FuseNet weights in flax msgpack
    (``utils/flax_msgpack.py``), the file the JAX package's retest and
    presave tools read; this package reads the ones the JAX package writes.
 """
@@ -22,8 +22,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models import (dispnet_state_dict_from_flax,
-                      flax_tree_from_dispnet_state_dict)
+from ..models import (FuseNet, dispnet_state_dict_from_flax,
+                      flax_tree_from_dispnet_state_dict,
+                      flax_tree_from_fusenet_state_dict,
+                      fusenet_state_dict_from_flax)
 from ..utils import flax_msgpack
 from .state import TrainState
 
@@ -34,20 +36,27 @@ def net_params_path(exp_dir: Path, epoch: int) -> Path:
 
 def save_net_params(exp_dir: Path, epoch: int,
                     model: torch.nn.Module) -> Path:
-    """Write the DispNet's weights as flax msgpack ``net_%04d.params``."""
+    """Write the DispNet's or FuseNet's weights as flax msgpack
+    ``net_%04d.params``."""
     path = net_params_path(exp_dir, epoch)
+    to_flax = (flax_tree_from_fusenet_state_dict if isinstance(model, FuseNet)
+               else flax_tree_from_dispnet_state_dict)
     tmp = path.with_name(path.name + ".tmp")
-    tmp.write_bytes(flax_msgpack.to_bytes(
-        flax_tree_from_dispnet_state_dict(model.state_dict())))
+    tmp.write_bytes(flax_msgpack.to_bytes(to_flax(model.state_dict())))
     os.replace(tmp, path)
     return path
 
 
-def load_net_params(path: Path) -> dict[str, torch.Tensor]:
-    """A ``net_%04d.params`` file (written by either package) as a DispNet
-    ``state_dict`` on the CPU."""
-    return dispnet_state_dict_from_flax(
-        flax_msgpack.from_bytes(Path(path).read_bytes()))
+def load_net_params(path: Path,
+                    model: torch.nn.Module | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """A ``net_%04d.params`` file (written by either package) as a
+    ``state_dict`` on the CPU: for ``model`` when it is a FuseNet, else for
+    DispNet."""
+    tree = flax_msgpack.from_bytes(Path(path).read_bytes())
+    if isinstance(model, FuseNet):
+        return fusenet_state_dict_from_flax(tree, model)
+    return dispnet_state_dict_from_flax(tree)
 
 
 class StateCheckpointer:

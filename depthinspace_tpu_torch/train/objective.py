@@ -1,15 +1,21 @@
-"""DIS-SF / DIS-FTSF objective, port of ``depthinspace_tpu/train/
-objective.py`` (the single-frame part):
+"""DIS-SF / DIS-FTSF / DIS-MF objectives, port of ``depthinspace_tpu/
+train/objective.py``:
 
-  components = [photometric(out_s) / 2^s for s in 0..3,
-                0.4 * smoothness(out_0),
-                (0.2 / C(tl,2)) * sum_pairs geometric(depth(out_0)),
-                [use_pseudo_gt] 0.1 * L1(out_s, pseudo_gt) / 2^s for s in 0..3,
-                [train, real data] 0.1 * [epoch < warmup]
-                    * masked-noisy-L1(out_s, sgm_disp) for s in 0..3]
+  SF: components = [photometric(out_s) / 2^s for s in 0..3,
+                    0.4 * smoothness(out_0),
+                    (0.2 / C(tl,2)) * sum_pairs geometric_sf(depth(out_0)),
+                    [use_pseudo_gt] 0.1 * L1(out_s, pseudo_gt) / 2^s,
+                    [train, real data] 0.1 * [epoch < warmup]
+                        * masked-noisy-L1(out_s, sgm_disp) for s in 0..3]
+  MF: components = [photometric(out), 0.8 * smoothness(out),
+                    (0.2 / C(tl,2)) * sum_pairs geometric_mf(depth(out)),
+                    [train] 0.1 * [epoch < 2] * L1(out, primary_disp),
+                    [train, real data] 0.1 * [epoch < warmup]
+                        * masked-noisy-L1(out, sgm_disp)]
 
 with the training-time device augmentation (``augment_batch_device``) and
-the flow sources "file", "rigid" and "pred". The JAX package draws its
+the flow sources "file", "rigid" and "pred" (DIS-MF: the rigid flow of the
+primary disparity). The JAX package draws its
 random numbers from jax keys; here they come from an explicit
 ``torch.Generator``, or are passed in (the tests hand both packages the
 same numbers).
@@ -23,8 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..losses import (CameraGeometry, geometric_loss_sf, photometric_loss,
-                      smoothness_loss)
+from ..losses import (CameraGeometry, geometric_loss_mf, geometric_loss_sf,
+                      photometric_loss, smoothness_loss)
 from ..ops import disp_to_depth, lcn, resize_bilinear
 
 FLOW_SOURCES = ("file", "rigid", "pred")
@@ -42,9 +48,12 @@ class LossContext(NamedTuple):
     use_pseudo_gt: bool = False
     lcn_radius: int = 5
     smooth_weight_sf: float = 0.4
+    smooth_weight_mf: float = 0.8
     geo_weight: float = 0.2
     pseudo_weight: float = 0.1
     sgm_weight: float = 0.1
+    mf_primary_warmup_weight: float = 0.1
+    mf_primary_warmup_epochs: int = 2
     sgm_noise_sigma: float = 1.5
     sgm_valid_threshold: float = 30.0
     geo_clamp: float = 0.1
@@ -54,8 +63,8 @@ class LossContext(NamedTuple):
     aug_max_noise: float = 3.0
     aug_max_sp_noise: float = 0.0005
     # "file": flow comes with the batch; "rigid": from the GT disparity and
-    # the poses (synthetic data); "pred": from the current prediction and
-    # the poses (GT-free)
+    # the poses (synthetic data); "pred": from the current prediction (SF)
+    # or the primary disparity (MF) and the poses (GT-free)
     flow_source: str = "file"
     # scale s of the photometric term at 1/2^s resolution, with the
     # per-scale LCN'd patterns for s = 1..3
@@ -212,13 +221,19 @@ def augment_batch_device(batch, draws: AugmentDraws):
                               tl, bs, H, W))
 
 
-def prepare_batch(batch, ctx: LossContext):
+def prepare_batch(batch, ctx: LossContext, multi_frame: bool = False):
     """The step's flow source: "rigid" computes the all-pairs flow from the
-    GT disparity and the poses; "file" and "pred" leave the batch as it is
-    ("pred" derives its flow inside sf_losses)."""
+    GT disparity and the poses; for DIS-MF "pred" computes it from the
+    primary disparity (the SF predictions FuseNet fuses); "file" leaves the
+    batch as it is, and so does SF "pred" (its flow comes from the live
+    prediction inside sf_losses)."""
     if ctx.flow_source == "rigid":
         batch = batch._replace(flow=rigid_flow_device(
             ctx.cam, batch.disp_gt, batch.R, batch.t, ctx.focal_length,
+            ctx.baseline))
+    elif ctx.flow_source == "pred" and multi_frame:
+        batch = batch._replace(flow=rigid_flow_device(
+            ctx.cam, batch.primary_disp, batch.R, batch.t, ctx.focal_length,
             ctx.baseline))
     return batch
 
@@ -301,6 +316,47 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
                 o[..., 0].shape, generator=generator, device=o.device))
             val = _sgm_warmup_term(o[..., 0], sgm, noise, ctx)
             comps.append(ctx.sgm_weight * gate * val)
+
+    comps = torch.stack(comps)
+    return torch.sum(comps), comps
+
+
+def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
+              epoch: float = 0, generator: Optional[torch.Generator] = None,
+              sgm_noise=None):
+    """DIS-MF loss vector. out: (tl, bs, H, W, 1). Returns (total,
+    components): 3 components, + 1 (the primary L1, gated to epoch < 2) when
+    training, + 1 (the SGM warmup) when training on real data. The SGM
+    term's noise is ``sgm_noise`` (standard normal, (tl*bs, H, W)) or, when
+    that is None, drawn from ``generator``."""
+    tl, bs, H, W = batch.im.shape
+    _, im_lcn, im_std, amb = preprocess_images(batch, ctx.lcn_radius)
+    o = out[..., 0].reshape(tl * bs, H, W)
+
+    comps = []
+    val, _ = photometric_loss(o, im_lcn, ctx.pattern_lcn, std=im_std)
+    comps.append(val)
+    comps.append(ctx.smooth_weight_mf * smoothness_loss(o, amb))
+
+    ge_num = ctx.track_length * (ctx.track_length - 1) / 2
+    depth = disp_to_depth(out[..., 0], ctx.focal_length, ctx.baseline)
+    primary_depth = disp_to_depth(batch.primary_disp, ctx.focal_length,
+                                  ctx.baseline)
+    ge = geometric_loss_mf(ctx.cam, depth, batch.R, batch.t, batch.flow,
+                           batch.ambient, primary_depth)
+    comps.append(ctx.geo_weight / ge_num * ge)
+
+    if train:
+        gate = 1.0 if epoch < ctx.mf_primary_warmup_epochs else 0.0
+        val = torch.mean(torch.abs(out[..., 0] - batch.primary_disp))
+        comps.append(ctx.mf_primary_warmup_weight * gate * val)
+        if ctx.data_type == "real":
+            sgm = batch.sgm_disp.reshape(tl * bs, H, W)
+            gate_sgm = 1.0 if epoch < ctx.warmup_epochs else 0.0
+            noise = (sgm_noise if sgm_noise is not None else torch.randn(
+                o.shape, generator=generator, device=o.device))
+            val = _sgm_warmup_term(o, sgm, noise, ctx)
+            comps.append(ctx.sgm_weight * gate_sgm * val)
 
     comps = torch.stack(comps)
     return torch.sum(comps), comps

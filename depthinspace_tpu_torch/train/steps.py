@@ -1,11 +1,12 @@
-"""DIS-SF train and evaluation steps, port of the single-frame part of
+"""DIS-SF and DIS-MF train and evaluation steps, port of
 ``depthinspace_tpu/train/steps.py::_make_step_fns``.
 
 The train step runs the forward, the loss vector, backward and one Adam
 update, eagerly; the eval step runs the forward and the components under
 ``torch.inference_mode()`` and returns disp0 quantized to u16 x256 (1/256
 px) as the JAX step does. Both apply the flow source first (``rigid``
-computes the flow from the GT disparity); with ``flow_source="pred"`` the
+computes the flow from the GT disparity; for DIS-MF ``pred`` computes it
+from the primary disparity); for DIS-SF with ``flow_source="pred"`` the
 flow comes from the live prediction inside ``sf_losses``.
 """
 
@@ -14,14 +15,32 @@ from __future__ import annotations
 import torch
 
 from ..data.batch import Batch
+from ..ops import disp_to_depth
 from .objective import (LossContext, augment_batch_device, draw_augment,
-                        prepare_batch, preprocess_images, sf_losses)
+                        mf_losses, prepare_batch, preprocess_images, sf_losses)
 from .state import TrainState
 
 
 def _sf_forward(model, batch: Batch, ctx: LossContext):
     net_in, *_ = preprocess_images(batch, ctx.lcn_radius)
     return model(net_in)            # 4 x (tl*bs, H, W, 1)
+
+
+def _mf_forward(model, batch: Batch, ctx: LossContext):
+    tl, bs, H, W = batch.im.shape
+    net_in, *_ = preprocess_images(batch, ctx.lcn_radius)
+    pdisp = batch.primary_disp[..., None]
+    pdepth = disp_to_depth(pdisp, ctx.focal_length, ctx.baseline)
+    return model(net_in.reshape(tl, bs, H, W, 2), batch.ambient[..., None],
+                 pdisp, pdepth, batch.R, batch.t, batch.flow)  # (tl,bs,H,W,1)
+
+
+# (forward, losses, disp0 (tl, bs, H, W) of the forward's output)
+_ARCH = {
+    "single_frame": (_sf_forward, sf_losses,
+                     lambda outs, b: outs[0][..., 0].reshape(b.im.shape)),
+    "multi_frame": (_mf_forward, mf_losses, lambda out, b: out[..., 0]),
+}
 
 
 def chunk_batch(batch: Batch, k: int) -> list[Batch]:
@@ -41,16 +60,10 @@ def chunk_batch(batch: Batch, k: int) -> list[Batch]:
                      for f in Batch._fields}) for i in range(k)]
 
 
-def make_sf_train_step(model: torch.nn.Module, ctx: LossContext,
-                       state: TrainState, accum_steps: int = 1):
-    """Returns ``train_step(batch, epoch=0) -> components`` (a detached
-    float32 tensor), which updates ``model`` through ``state.optimizer`` and
-    advances ``state.step``.
-
-    ``accum_steps > 1`` runs forward and backward over bs/accum consecutive
-    microbatches, sums their gradients, scales the sum by 1/accum and takes
-    one optimizer step; the components are the microbatches' mean. The
-    gradients stay on the parameters until the next step."""
+def _make_train_step(architecture: str, model: torch.nn.Module,
+                     ctx: LossContext, state: TrainState, accum_steps: int):
+    forward, losses, _ = _ARCH[architecture]
+    multi_frame = architecture == "multi_frame"
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch: Batch, epoch: float = 0) -> torch.Tensor:
@@ -64,10 +77,10 @@ def make_sf_train_step(model: torch.nn.Module, ctx: LossContext,
                 tl, bs, H, W = b.im.shape
                 b = augment_batch_device(b, draw_augment(
                     tl * bs, H, W, ctx, state.generator))
-            b = prepare_batch(b, ctx)
-            outs = _sf_forward(model, b, ctx)
-            total, comps = sf_losses(outs, b, ctx, train=True, epoch=epoch,
-                                     generator=state.generator)
+            b = prepare_batch(b, ctx, multi_frame)
+            outs = forward(model, b, ctx)
+            total, comps = losses(outs, b, ctx, train=True, epoch=epoch,
+                                  generator=state.generator)
             total.backward()
             comps = comps.detach()
             comps_sum = comps if comps_sum is None else comps_sum + comps
@@ -84,19 +97,52 @@ def make_sf_train_step(model: torch.nn.Module, ctx: LossContext,
     return train_step
 
 
-def make_sf_eval_step(model: torch.nn.Module, ctx: LossContext):
-    """Returns ``eval_step(batch, epoch=0) -> (disp0_u16 (tl, bs, H, W)
-    uint16, components float32)``; ``batch`` holds float32 tensors on the
-    model's device (``data.batch_to_torch``)."""
+def _make_eval_step(architecture: str, model: torch.nn.Module,
+                    ctx: LossContext):
+    forward, losses, take_disp0 = _ARCH[architecture]
+    multi_frame = architecture == "multi_frame"
 
     @torch.inference_mode()
     def eval_step(batch: Batch, epoch: float = 0):
-        batch = prepare_batch(batch, ctx)
-        outs = _sf_forward(model, batch, ctx)
-        _, comps = sf_losses(outs, batch, ctx, train=False, epoch=epoch)
-        disp = outs[0][..., 0].reshape(batch.im.shape)
+        batch = prepare_batch(batch, ctx, multi_frame)
+        outs = forward(model, batch, ctx)
+        _, comps = losses(outs, batch, ctx, train=False, epoch=epoch)
+        disp = take_disp0(outs, batch)
         disp_u16 = torch.clamp(disp * 256.0 + 0.5, 0, 65535).to(
             torch.int32).to(torch.uint16)
         return disp_u16, comps
 
     return eval_step
+
+
+def make_sf_train_step(model: torch.nn.Module, ctx: LossContext,
+                       state: TrainState, accum_steps: int = 1):
+    """Returns ``train_step(batch, epoch=0) -> components`` (a detached
+    float32 tensor), which updates ``model`` through ``state.optimizer`` and
+    advances ``state.step``.
+
+    ``accum_steps > 1`` runs forward and backward over bs/accum consecutive
+    microbatches, sums their gradients, scales the sum by 1/accum and takes
+    one optimizer step; the components are the microbatches' mean. The
+    gradients stay on the parameters until the next step."""
+    return _make_train_step("single_frame", model, ctx, state, accum_steps)
+
+
+def make_mf_train_step(model: torch.nn.Module, ctx: LossContext,
+                       state: TrainState, accum_steps: int = 1):
+    """The DIS-MF train step, as :func:`make_sf_train_step`; ``batch`` must
+    carry ``primary_disp``. With accumulation the masked-mean terms
+    normalize by each microbatch's own mask count, as in the JAX package."""
+    return _make_train_step("multi_frame", model, ctx, state, accum_steps)
+
+
+def make_sf_eval_step(model: torch.nn.Module, ctx: LossContext):
+    """Returns ``eval_step(batch, epoch=0) -> (disp0_u16 (tl, bs, H, W)
+    uint16, components float32)``; ``batch`` holds float32 tensors on the
+    model's device (``data.batch_to_torch``)."""
+    return _make_eval_step("single_frame", model, ctx)
+
+
+def make_mf_eval_step(model: torch.nn.Module, ctx: LossContext):
+    """The DIS-MF eval step, as :func:`make_sf_eval_step`."""
+    return _make_eval_step("multi_frame", model, ctx)

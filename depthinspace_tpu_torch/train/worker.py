@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
-from ..data import DataLoader, batch_to_torch, load_settings
+from ..data import (DataLoader, SyntheticTrackDataset, TrackDataset,
+                    batch_to_torch, load_settings)
 from ..data.dataset import SyntheticSource
 from ..device import resolve_device
 from ..utils import metric as metric_lib
@@ -112,7 +113,7 @@ class Worker:
             use_pseudo_gt=cfg.use_pseudo_gt, lcn_radius=cfg.lcn_radius,
             augment=cfg.device_augment, flow_source=cfg.flow_source,
             photometric_pyramid=cfg.photometric_pyramid)
-        self.accum_steps = max(1, cfg.accum_steps)
+        self.accum_steps = self._resolve_accum()
         if self.accum_steps > 1:
             logging.info(f"gradient accumulation: {self.accum_steps} "
                          "microbatches per optimizer step")
@@ -120,6 +121,21 @@ class Worker:
         self.current_epoch = 0
 
     # ------------------------------------------------------------- setup
+    def _resolve_accum(self) -> int:
+        """0 = auto, the JAX worker's rule (one device): 2 microbatches for
+        DIS-MF without remat at bs >= 4 (even) and >= 512x432 frames, where
+        the JAX graph did not fit a 16 GiB TPU; 1 otherwise. The card has
+        the memory for one; the rule stays so that the same flags compute
+        the same masked-mean statistic in both packages."""
+        if self.cfg.accum_steps > 0:
+            return self.cfg.accum_steps
+        bs = self.cfg.train_batch_size
+        H, W = self.imsize
+        if (self.architecture == "multi_frame" and not self.cfg.mf_remat
+                and bs >= 4 and H * W >= 512 * 432 and bs % 2 == 0):
+            return 2
+        return 1
+
     def _setup_logging(self):
         del logging.root.handlers[:]
         logging.basicConfig(
@@ -159,11 +175,34 @@ class Worker:
     def make_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def _dataset(self, samples, train: bool):
+        """The split's dataset: optical flow from flow.hdf5 when
+        flow_source is "file"; DIS-MF adds the primary disparities, and its
+        test sets alone the pseudo GT; in-memory samples when the worker has
+        a source."""
+        mf = self.architecture == "multi_frame"
+        load_flow = self.cfg.flow_source == "file"
+        if self.source is not None:
+            if self.cfg.use_pseudo_gt or self.cfg.data_type == "real":
+                raise ValueError("in-memory synthetic samples carry no "
+                                 "pseudo GT and no SGM disparities")
+            return SyntheticTrackDataset(
+                self.source, samples, track_length=self.cfg.track_length,
+                train=train, load_flow=load_flow, load_primary=mf)
+        return TrackDataset(
+            self.settings, samples, train=train,
+            track_length=self.cfg.track_length, load_flow=load_flow,
+            load_primary=mf,
+            load_pseudo_gt=self.cfg.use_pseudo_gt and not (mf and train),
+            data_type=self.cfg.data_type)
+
     def make_train_set(self):
-        raise NotImplementedError
+        return self._dataset(self.train_samples, train=True)
 
     def make_test_sets(self) -> list[TestSet]:
-        raise NotImplementedError
+        return [TestSet("simple", self._dataset(self.test_samples,
+                                                train=False),
+                        test_frequency=self.cfg.test_frequency)]
 
     def make_train_step(self, state: TrainState):
         raise NotImplementedError
@@ -325,5 +364,5 @@ class Worker:
         for ep in epochs:
             path = net_params_path(self.exp_dir, ep)
             if path.exists():
-                model.load_state_dict(load_net_params(path))
+                model.load_state_dict(load_net_params(path, model))
                 self.test(ep, model, test_sets)

@@ -37,8 +37,7 @@ def parse_args(argv=None):
         type=int)
     add("--train_batch_size", help="Train batch size", default=8, type=int)
     add("--architecture", default="single_frame",
-        choices=["single_frame", "multi_frame"], type=str,
-        help="multi_frame is not ported yet")
+        choices=["single_frame", "multi_frame"], type=str)
     add("--use_pseudo_gt", help="Only applicable in single-frame model",
         default=False, type=str2bool)
     add("--device_augment", help="Augment the training batches on the "
@@ -61,17 +60,18 @@ def parse_args(argv=None):
              "learned FlowNet) is not ported yet")
     add("--flow_params", default="", help="FlowNet msgpack for "
         "--flow_source net (not ported yet)")
-    add("--mf_remat", help="DIS-MF option (not ported yet)", default=False,
-        type=str2bool)
+    add("--mf_remat", help="Recompute FuseNet's fusion and decoder blocks "
+        "in the backward (torch.utils.checkpoint) instead of keeping their "
+        "activations", default=False, type=str2bool)
     add("--accum_steps", help="Gradient-accumulation microbatches per "
-        "optimizer step (0 = auto, which is 1 for DIS-SF)", default=0,
-        type=int)
+        "optimizer step (0 = auto: 2 for DIS-MF without remat at batch "
+        ">= 4 and 512x432, else 1)", default=0, type=int)
     add("--geo_max_shift", help="Accepted for compatibility; this package's "
         "flow warp has no shift bound", default=16, type=int)
     add("--max_train_iter", help="Cap train steps per epoch (-1 = full pass)",
         default=-1, type=int)
     add("--test_samples", help="Evaluate on the first N samples of each test "
         "split (-1 = all)", default=-1, type=int)
-    add("--mf_dtype", help="DIS-MF option (not ported yet)",
+    add("--mf_dtype", help="FuseNet compute dtype (parameters stay float32)",
         default="bfloat16", choices=["float32", "bfloat16"], type=str)
     return parser.parse_args(argv)

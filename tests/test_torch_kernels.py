@@ -14,8 +14,12 @@ from depthinspace_tpu_torch.ops import kernels
 from depthinspace_tpu_torch.ops.census import (census_sad,
                                                census_sad_bwd_plain,
                                                census_sad_plain)
-from depthinspace_tpu_torch.ops.resample import (flow_warp, warp2d_bwd_plain,
-                                                 warp2d_plain, warp_pattern,
+from depthinspace_tpu_torch.ops.resample import (flow_warp, flow_warp_pairs,
+                                                 warp2d_bwd_plain,
+                                                 warp2d_pairs_bwd_plain,
+                                                 warp2d_pairs_plain,
+                                                 warp2d_plain, warp2d_v1,
+                                                 warp_pattern,
                                                  xwarp_bwd_plain, xwarp_plain)
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +197,107 @@ def test_bwd_kernels_match_finite_differences(cuda):
     img, g4 = _randn(shape + (3,), 28, cuda), _randn(shape + (3,), 29, cuda)
     _fd_check(_grad_of(lambda x: flow_warp(x, flow), img, g4),
               lambda x: warp2d_plain(x, flow.double()), img, g4, 30)
+
+
+# K4: ragged shapes with tables that repeat and skip planes, then the DIS-MF
+# train step's (4 tracks x 4 frames: S = 16, M = 48, both fusion scales).
+PAIR_CASES = [((3, 9, 7, 1), (0, 2, 2, 0, 2, 0)),
+              ((3, 37, 50, 5), (1, 1, 1, 0, 0, 1)),
+              ((3, 21, 19, 32), (2, 0, 1, 2, 0, 1)),
+              ((16, 256, 216, 32), None),
+              ((16, 128, 108, 32), None)]
+
+
+def _track_table(S):
+    """The FuseNet table for tl = 4, N = S / 4 (fusenet._pair_list)."""
+    N = S // 4
+    return tuple(j * N + n for i in range(4) for j in range(4) if j != i
+                 for n in range(N))
+
+
+def _pair_inputs(cuda, shape, src, dtype, seed):
+    S, H, W, C = shape
+    src = _track_table(S) if src is None else src
+    feat = _randn(shape, seed, cuda).to(dtype)
+    rng = np.random.RandomState(seed + 1)
+    flow = torch.from_numpy(rng.uniform(-12.0, 12.0, (len(src), H, W, 2))
+                            .astype(np.float32)).to(cuda)
+    g = _randn((len(src), H, W, C), seed + 2, cuda).to(dtype)
+    return feat, flow, src, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,src", PAIR_CASES)
+def test_warp2d_pairs_kernels_match_plain(cuda, shape, src, dtype):
+    feat, flow, src, g = _pair_inputs(cuda, shape, src, dtype, 40)
+    before = dict(kernels.launches)
+    out = flow_warp_pairs(feat, flow, src)
+    grad = _grad_of(lambda x: flow_warp_pairs(x, flow, src), feat, g)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_pairs_fwd"] == \
+        before["warp2d_pairs_fwd"] + 2
+    assert kernels.launches["warp2d_pairs_bwd"] == \
+        before["warp2d_pairs_bwd"] + 1
+    assert out.dtype == dtype and grad.dtype == dtype
+    # the forward: K3's arithmetic in float32, one rounding at the store,
+    # as the plain version: exact
+    torch.testing.assert_close(out, warp2d_pairs_plain(feat, flow, src),
+                               rtol=0, atol=0)
+    # the backward: float atomics sum the pairs' terms in a varying order
+    # (float32: 1e-5 at |g| ~ 1); bfloat16 rounds that float32 sum once,
+    # so a neighbour of the plain version's value (one bf16 ulp, 2^-8
+    # relative, on either side: rtol 2^-6)
+    ref = warp2d_pairs_bwd_plain(flow, src, g, feat.shape[0])
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(grad.float(), ref.float(), rtol=2 ** -6,
+                                   atol=1e-5)
+
+
+def test_warp2d_pairs_bwd_matches_finite_differences(cuda):
+    feat, flow, src, g = _pair_inputs(cuda, (3, 13, 11, 4),
+                                      (2, 0, 0, 2, 1, 2), torch.float32, 50)
+    _fd_check(_grad_of(lambda x: flow_warp_pairs(x, flow, src), feat, g),
+              lambda x: warp2d_pairs_plain(x, flow.double(), src), feat, g,
+              51)
+
+
+def test_warp2d_pairs_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    feat, flow, src, g = _pair_inputs(cuda, (3, 9, 7, 2),
+                                      (0, 1, 2, 0, 1, 2), torch.float32, 60)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.warp2d_pairs_fwd(feat.cpu(), flow.cpu(), src)
+    with pytest.raises(TypeError):
+        kernels.warp2d_pairs_fwd(feat.half(), flow, src)
+    with pytest.raises(TypeError):
+        kernels.warp2d_pairs_fwd(feat, flow.double(), src)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.warp2d_pairs_fwd(feat.transpose(1, 2), flow, src)
+    with pytest.raises(ValueError, match="fit"):
+        kernels.warp2d_pairs_fwd(feat, flow[:, :8].contiguous(), src)
+    with pytest.raises(ValueError, match="source indices"):
+        kernels.warp2d_pairs_fwd(feat, flow, (0, 1, 2, 0, 1))
+    with pytest.raises(ValueError, match=r"\[0, 3\)"):
+        kernels.warp2d_pairs_fwd(feat, flow, (0, 1, 3, 0, 1, 2))
+    with pytest.raises(ValueError, match=r"\[0, 3\)"):
+        kernels.warp2d_pairs_bwd(flow, (0, -1, 2, 0, 1, 2), g, 3)
+    with pytest.raises(ValueError, match="fit"):
+        kernels.warp2d_pairs_bwd(flow, src, g[:5].contiguous(), 3)
+
+
+@pytest.mark.parametrize("M,H,W,C", [(2, 9, 7, 5), (3, 37, 50, 1)])
+def test_warp2d_v1_runs_k3_kernels_under_its_own_counters(cuda, M, H, W, C):
+    img, g = _randn((M, H, W, C), 70, cuda), _randn((M, H, W, C), 71, cuda)
+    flow = torch.from_numpy(np.random.RandomState(72).uniform(
+        -15.0, 15.0, (M, H, W, 2)).astype(np.float32)).to(cuda)
+    before = dict(kernels.launches)
+    out = warp2d_v1(img, flow)
+    grad = _grad_of(lambda x: warp2d_v1(x, flow), img, g)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_v1_fwd"] == before["warp2d_v1_fwd"] + 2
+    assert kernels.launches["warp2d_v1_bwd"] == before["warp2d_v1_bwd"] + 1
+    assert kernels.launches["warp2d_fwd"] == before["warp2d_fwd"]
+    torch.testing.assert_close(out, warp2d_plain(img, flow), rtol=0, atol=0)
+    torch.testing.assert_close(grad, warp2d_bwd_plain(flow, g), rtol=0,
+                               atol=1e-5)

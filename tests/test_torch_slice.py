@@ -113,7 +113,9 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     """Imports every module of the port and runs the tiny slice in a process
     where the JAX stack, h5py, cv2, msgpack, matplotlib and the JAX package
     cannot be imported: an eval step, the server, one train step, and the
-    worker for one epoch on in-memory synthetic samples, with a resume."""
+    worker for one epoch on in-memory synthetic samples, with a resume;
+    then FuseNet, one DIS-MF train step and one TrackDisparityServer
+    request."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         from pathlib import Path
@@ -158,6 +160,24 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         SingleFrameWorker(cfg, device="cpu", source=src).do("resume")
         exp = Path(sys.argv[1]) / "single_frame"
         assert (exp / "net_0001.params").exists()
+        from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
+        from depthinspace_tpu_torch.serve import TrackDisparityServer
+        from depthinspace_tpu_torch.train import make_mf_train_step
+        mb = make_track_batch(s, tl=4, bs=1, seed=0, disp_range=(2.0, 8.0),
+                              primary_noise=0.5)
+        mf = init_fusenet_(FuseNet((32, 24), s.K, 4, block_num=1,
+                                   channels=8),
+                           torch.Generator().manual_seed(0))
+        mstate = TrainState.create(mf, device="cpu")
+        comps = make_mf_train_step(mf, ctx, mstate)(batch_to_torch(mb, "cpu"))
+        assert mstate.step == 1 and comps.shape == (4,)
+        assert bool(torch.isfinite(comps).all())
+        srv = TrackDisparityServer(net, mf, imsize=(32, 24), K=s.K,
+                                   device="cpu")
+        mv = lambda a: a.swapaxes(0, 1)
+        out = srv.infer(mv(mb.im), mv(mb.ambient), mv(mb.R), mv(mb.t),
+                        mb.flow.transpose(2, 0, 1, 3, 4, 5))
+        assert out.shape == (1, 4, 32, 24)
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
