@@ -17,7 +17,9 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            the tolerance stated beside it; the median device time of the
            kernel, of the plain version and of the one PyTorch call that
            computes the same function where there is one (F.grid_sample and
-           its backward), and the kernel's bound;
+           its backward; for K4 also index_select + grid_sample, since K4
+           gathers its sources itself), and the kernel's bound; K2 timed at
+           both shapes; the kernel K4's forward takes (vector or scalar);
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
            ragged 13-image request (8 + 5), maps/s;
 5. eval    the DIS-SF evaluation step on a (tl=4, bs=2) synthetic track batch
@@ -273,8 +275,10 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     n = TL * BS
     pattern = lcn(torch.as_tensor(settings.pattern_gray(), device=dev))[0]
+    # contiguous, as the photometric loss's disparity is: smooth_disparity's
+    # array is not C-ordered, and XWarp would copy it in every timed call
     disp = torch.as_tensor(smooth_disparity(rng, (n, H, W), 0.0, 128.0),
-                           device=dev)
+                           device=dev).contiguous()
     im_lcn = lcn(batch.im.reshape(n, H, W))[0]
     es = xwarp_plain(pattern, disp)
 
@@ -390,6 +394,22 @@ def main() -> None:
     check_fwd("xwarp_fwd", warp_pattern(pattern, disp_t),
               xwarp_plain(pattern, disp_t),
               f"pattern {tuple(pattern.shape)} disp {tuple(disp_t.shape)}")
+    # K2 at the train step's shape too: its row of the kernels line keeps
+    # the eval shape's numbers and these beside them
+    gs_bwd = torch.ops.aten.grid_sampler_2d_backward
+    pat_t = pattern.expand(nt, 1, H, W)
+    grid_t = grid_of(u - disp_t, v.expand(nt, H, W))
+    k2t = dict(ms=cuda_ms(lambda: warp_pattern(pattern, disp_t)),
+               plain_ms=cuda_ms(lambda: xwarp_plain(pattern, disp_t)),
+               library_ms=cuda_ms(lambda: F.grid_sample(
+                   pat_t, grid_t, mode="bilinear", padding_mode="border",
+                   align_corners=True)),
+               bound_ms=bound_ms(2 * 4 * px_t + 4 * H * W)[0])
+    results["xwarp_fwd"]["train"] = k2t
+    print(f"[kernel] xwarp_fwd disp {tuple(disp_t.shape)} (train step): "
+          f"kernel {k2t['ms']:.4f} ms plain {k2t['plain_ms']:.4f} ms "
+          f"library {k2t['library_ms']:.4f} ms bound {k2t['bound_ms']:.4f} "
+          f"ms (bytes; {k2t['bound_ms'] / k2t['ms']:.0%} of it)")
     # per distinct pair: 2 rsqrt, ~16 FLOPs (the forward's differences and
     # d * r, 0.5 * eps * r^3, g(p) + g(q), the signed product, its sum into
     # both pixels)
@@ -400,9 +420,6 @@ def main() -> None:
            None, bound_ms(4 * 4 * px_t, flops=16 * pairs_t,
                           rsqrts=2 * pairs_t),
            f"es,ta,g {tuple(es_t.shape)}")
-    gs_bwd = torch.ops.aten.grid_sampler_2d_backward
-    pat_t = pattern.expand(nt, 1, H, W)
-    grid_t = grid_of(u - disp_t, v.expand(nt, H, W))
     g_t4 = g_t[:, None]
     record("xwarp_bwd", bwd(lambda d: warp_pattern(pattern, d), disp_t, g_t),
            xwarp_bwd_plain(pattern, disp_t, g_t),
@@ -460,7 +477,8 @@ def main() -> None:
     k4 = {}
     for dt in (torch.bfloat16, torch.float32):
         elt = 2 if dt == torch.bfloat16 else 4
-        acc = {k: [0.0] * 5 for k in ("fwd", "bwd")}   # err, ms, plain, lib
+        # err, ms, plain, library, index_select + library
+        acc = {k: [0.0] * 5 for k in ("fwd", "bwd")}
         nbytes = {"fwd": 0, "bwd": 0}
         nflops = {"fwd": 0, "bwd": 0}
         for h, w in ((H // 2, W // 2), (H // 4, W // 4)):
@@ -471,6 +489,12 @@ def main() -> None:
                 np.float32), device=dev).to(dt)
             out = flow_warp_pairs(feat, pf, src_mf)
             ref = warp2d_pairs_plain(feat, pf, src_mf)
+            vpt = kernels.pairs_fwd_vpt(32, dt, feat.data_ptr(), pf.data_ptr(),
+                                        out.data_ptr())
+            k4_path = (f"vector, {vpt * kernels.VEC_CHANNELS[dt]} channels "
+                       "a thread" if vpt else "scalar")
+            check(vpt > 0, f"warp2d_pairs_fwd {dt} took the scalar kernel "
+                  "at the MF shapes")
             grad = bwd(lambda x: flow_warp_pairs(x, pf, src_mf), feat, g)
             ref_g = warp2d_pairs_bwd_plain(pf, src_mf, g, S_mf)
             torch.cuda.synchronize()
@@ -490,8 +514,8 @@ def main() -> None:
                   f"warp2d_pairs_bwd {dt} disagrees with its plain version: "
                   f"{err_b}")
             srcs = torch.as_tensor(src_mf, device=dev)
-            stacked = feat.index_select(0, srcs).permute(0, 3, 1, 2)
-            stacked = stacked.contiguous()
+            feat_nchw = feat.permute(0, 3, 1, 2).contiguous()
+            stacked = feat_nchw.index_select(0, srcs)
             u_s = torch.arange(w, dtype=torch.float32, device=dev)
             v_s = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
             grid_p = grid_of(pf[..., 0] + u_s, pf[..., 1] + v_s).to(dt)
@@ -503,7 +527,11 @@ def main() -> None:
                                 reps=5),
                         cuda_ms(lambda: F.grid_sample(
                             stacked, grid_p, mode="bilinear",
-                            padding_mode="zeros", align_corners=True))),
+                            padding_mode="zeros", align_corners=True)),
+                        cuda_ms(lambda: F.grid_sample(
+                            feat_nchw.index_select(0, srcs), grid_p,
+                            mode="bilinear", padding_mode="zeros",
+                            align_corners=True))),
                 "bwd": (cuda_ms(lambda: kernels.warp2d_pairs_bwd(
                             pf, src_mf, g, S_mf)),
                         cuda_ms(lambda: warp2d_pairs_bwd_plain(
@@ -512,8 +540,8 @@ def main() -> None:
                                                True, [True, False])))}
             for k, e in (("fwd", err_f), ("bwd", err_b)):
                 acc[k][0] = max(acc[k][0], e)
-                for i in range(3):
-                    acc[k][i + 1] += times[k][i]
+                for i, t in enumerate(times[k]):
+                    acc[k][i + 1] += t
             M_px = len(src_mf) * h * w
             # each input read once, each output written once; per output
             # element 4 products and 3 sums, per pixel ~15 for the taps
@@ -523,20 +551,27 @@ def main() -> None:
             nflops["fwd"] += M_px * (7 * 32 + 15)
             nflops["bwd"] += M_px * (8 * 32 + 15)
             print(f"[kernel] warp2d_pairs {dt} S={S_mf} M={len(src_mf)} "
-                  f"{h}x{w}x32: fwd max|kernel-plain| {err_f:.3g} kernel "
-                  f"{times['fwd'][0]:.4f} ms plain {times['fwd'][1]:.4f} ms "
-                  f"grid_sample {times['fwd'][2]:.4f} ms; bwd max|kernel-"
+                  f"{h}x{w}x32: fwd ({k4_path}) max|kernel-plain| "
+                  f"{err_f:.3g} kernel {times['fwd'][0]:.4f} ms plain "
+                  f"{times['fwd'][1]:.4f} ms grid_sample on the gathered "
+                  f"stack {times['fwd'][2]:.4f} ms, index_select + "
+                  f"grid_sample {times['fwd'][3]:.4f} ms; bwd max|kernel-"
                   f"plain| {err_b:.3g} kernel {times['bwd'][0]:.4f} ms plain "
                   f"{times['bwd'][1]:.4f} ms grid_sample bwd "
                   f"{times['bwd'][2]:.4f} ms")
-            del feat, g, grad, ref_g, out, ref, stacked, g_nchw, grid_p
+            del feat, g, grad, ref_g, out, ref, stacked, g_nchw, grid_p, \
+                feat_nchw
         for k in ("fwd", "bwd"):
             b = bound_ms(nbytes[k], flops=nflops[k])
             k4[(k, dt)] = dict(max_abs_err=acc[k][0], ms=acc[k][1],
                                plain_ms=acc[k][2], library_ms=acc[k][3],
                                bound_ms=b[0], bound_by=b[1])
+            lib = f"library {acc[k][3]:.4f} ms"
+            if k == "fwd":
+                k4[(k, dt)].update(library_gather_ms=acc[k][4], path=k4_path)
+                lib += f", index_select + grid_sample {acc[k][4]:.4f} ms"
             print(f"[kernel] warp2d_pairs_{k} {dt} (both scales): kernel "
-                  f"{acc[k][1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+                  f"{acc[k][1]:.4f} ms, {lib}, bound {b[0]:.4f} ms ({b[1]}; "
                   f"{b[0] / acc[k][1]:.0%} of it)")
     for k in ("fwd", "bwd"):
         results[f"warp2d_pairs_{k}"] = dict(

@@ -13,34 +13,56 @@
 // The forward computes K3's function (csrc/warp2d.cu) with the corners taken
 // from plane src[m] of feat, so the pair-major stack of sources is never
 // built. The corner weights, the per-corner validity and the clamp before
-// the int conversion are K3's, in the plain version's order with
-// round-to-nearest intrinsics, so float32 is bit-exact to the plain
-// version. Unlike K3 (one thread per pixel, looping over its few channels),
-// a thread computes one (pixel, channel) element, on a grid of (chunks of a
-// row's W*C elements, rows, pairs): with C = 32 a warp is one pixel, so its
-// corner loads, its store and (backward) its atomics are 32 contiguous
-// elements instead of 32 addresses C elements apart; each thread recomputes
-// its pixel's taps from the flow word the warp shares. bfloat16
-// features are loaded with __bfloat162float, weighted and summed in float32
-// and rounded once at the store, as the TPU kernel DMAs bf16, accumulates in
-// f32 and casts at the end. Unbounded like the CPU truth
-// (ops/sampling.py::warp): no offset beyond +-19 px is dropped.
-// The TPU kernel's band windows, offset enumeration, scalar-prefetched range
-// tables and source-major grid existed because gathers were slow there.
+// the int conversion are K3's (taps() below), and each channel sums
+// v00*w00 + v01*w01 + v10*w10 + v11*w11 in that order with round-to-nearest
+// intrinsics, so the forward is bit-exact to the plain version in both
+// types. bfloat16 features are widened exactly to float32, weighted and
+// summed in float32 and rounded once at the store, as the TPU kernel DMAs
+// bf16, accumulates in f32 and casts at the end. Unbounded like the CPU
+// truth (ops/sampling.py::warp): no offset beyond +-19 px is dropped. The
+// TPU kernel's band windows, offset enumeration and scalar-prefetched range
+// tables existed because gathers were slow there.
 //
-// What bounds it on the H100: memory. Per pixel it reads two flow words and
-// four data-dependent corners of C channels (C = 32 bf16 is 64 contiguous
-// bytes per corner) and writes C; for the smooth flows of a track the
-// corners of neighbouring pixels are neighbours and mostly hit L1/L2.
+// What bounds the forward on the H100: memory, once the instructions per
+// output byte are few. Per output pixel it reads one flow float2 and four
+// data-dependent corners of C channels (C = 32 bf16: 64 contiguous bytes a
+// corner) and writes C channels. The first design, one thread per (pixel,
+// channel) element, spent ~30 instructions of taps and index arithmetic and
+// four 2-byte loads on each 2-byte output, and ran as fast in f32 as in
+// bf16: instructions and latency bound it, at 11 % of its byte bound. The
+// vector kernel does three things about that:
+//   - a thread owns VPT 16-byte vectors of one pixel's channels (8 bf16 or
+//     4 float32 each); it loads the flow as one float2, computes the taps
+//     once, makes one 16-byte read-only (__ldg, ld.global.nc) load per
+//     valid corner and vector, all in flight before any arithmetic, and one
+//     16-byte store a vector. Neighbouring pixels share corners, which L1
+//     serves. The wrapper takes VPT = 2 where C allows it (else 1): at
+//     C = 32 it was faster than one vector a thread and than a whole pixel
+//     a thread (4 or 8 vectors) in both types. VPT = 4 and 8 stay
+//     instantiated for that comparison (scripts/ab_torch_kernels.py);
+//   - a block is (C / (8 or 4) / VPT threads of a pixel) x (pixels), over
+//     a pair's whole plane, so no row leaves a ragged block;
+//   - the grid's pair axis walks `order`, the pairs grouped by source: the
+//     pairs that read one source plane (3.5 MB at 256x216x32 bf16) run back
+//     to back while it sits in the 50 MB L2, instead of 12 pairs apart in
+//     the table's target-major order. Each output is still written at its
+//     own slot m, so the result does not depend on the order.
+// It needs C a multiple of the vector's channels and 16-byte aligned feat
+// and out (8-byte aligned flow); the wrapper checks that and otherwise
+// launches the scalar kernel, the first design, one thread per element.
+// Not the tools here: TMA, cp.async staging and shared memory. The corners
+// depend on the data and the flow has no bound, so no tile with a halo is
+// known ahead (a 32-channel halo of +-16 px would not fit in shared memory
+// either); nothing is a matrix product, so tensor cores do not apply.
 //
 // The backward scatters w*g to the four valid corners of plane src[m] with
 // float atomicAdd into a float32 (S, H, W, C) scratch that the launcher
-// zeroes on the stream; for bfloat16 a cast kernel then rounds the scratch
-// into the bf16 gradient, as the TPU kernel casts its f32 grad_pad. The
-// atomics make the bits of a sum of three or more contributions vary from
-// run to run. The TPU kernel's grid needed every source in the same number
-// of pairs; this one takes any table with 0 <= src[m] < S (the wrapper
-// checks it on the host).
+// zeroes on the stream, one thread per element; for bfloat16 a cast kernel
+// then rounds the scratch into the bf16 gradient, as the TPU kernel casts
+// its f32 grad_pad. The atomics make the bits of a sum of three or more
+// contributions vary from run to run. The TPU kernel's grid needed every
+// source in the same number of pairs; this one takes any table with
+// 0 <= src[m] < S (the wrapper checks it on the host).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,12 +86,11 @@ struct Taps {
   bool vx0, vx1, vy0, vy1;
 };
 
-__device__ __forceinline__ Taps taps(const float* __restrict__ flow,
-                                     long long p, int u, int v, int H,
-                                     int W) {
+__device__ __forceinline__ Taps taps_at(float fx, float fy, int u, int v,
+                                        int H, int W) {
   Taps t;
-  const float gx = __fadd_rn(flow[2 * p], (float)u);
-  const float gy = __fadd_rn(flow[2 * p + 1], (float)v);
+  const float gx = __fadd_rn(fx, (float)u);
+  const float gy = __fadd_rn(fy, (float)v);
   const float x0f = floorf(gx);
   const float y0f = floorf(gy);
   const float wx1 = __fsub_rn(gx, x0f);
@@ -91,6 +112,12 @@ __device__ __forceinline__ Taps taps(const float* __restrict__ flow,
   t.vy0 = t.y0 >= 0 && t.y0 <= H - 1;
   t.vy1 = t.y1 >= 0 && t.y1 <= H - 1;
   return t;
+}
+
+__device__ __forceinline__ Taps taps(const float* __restrict__ flow,
+                                     long long p, int u, int v, int H,
+                                     int W) {
+  return taps_at(flow[2 * p], flow[2 * p + 1], u, v, H, W);
 }
 
 // The thread's output element on a grid of (chunks of a row's W*C
@@ -145,6 +172,119 @@ __global__ void warp2d_pairs_fwd_kernel(const T* __restrict__ feat,
   store_f32(out + x.p * C + x.c, __fadd_rn(acc, __fmul_rn(v11, t.w11)));
 }
 
+// A 16-byte vector of channels: its raw type, its channels as float32 (the
+// bfloat16 ones widened exactly: the bits shifted up), and the store with
+// one round-to-nearest rounding a channel.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  using Raw = float4;
+  static constexpr int kN = 4;
+  __device__ static void widen(const float4& r, float (&f)[kN]) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+  __device__ static void store(float* p, const float (&f)[kN]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int kN = 8;
+  __device__ static void widen(const uint4& r, float (&f)[kN]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[2 * k] = __uint_as_float(w[k] << 16);  // the lower address
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  __device__ static unsigned pack(float lo, float hi) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&f)[kN]) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack(f[0], f[1]), pack(f[2], f[3]), pack(f[4], f[5]),
+                   pack(f[6], f[7]));
+  }
+};
+
+template <typename Raw>
+__device__ __forceinline__ Raw load_nc(const void* p, bool valid) {
+  Raw r{};
+  if (valid) r = __ldg(reinterpret_cast<const Raw*>(p));
+  return r;
+}
+
+// The vector forward: block (G, P) is G threads on each of P pixels of a
+// plane, G = C / (Vec::kN * VPT); thread x owns channels [x*VPT*kN,
+// (x+1)*VPT*kN) of its pixel. blockIdx.y walks the source-major order of
+// the pairs.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(256)
+    warp2d_pairs_fwd_vec_kernel(const T* __restrict__ feat,
+                                const float* __restrict__ flow,
+                                const int* __restrict__ src,
+                                const int* __restrict__ order,
+                                T* __restrict__ out, int H, int W, int C) {
+  using V = Vec<T>;
+  using Raw = typename V::Raw;
+  constexpr int kN = V::kN;
+  const int pix = blockIdx.x * blockDim.y + threadIdx.y;
+  if (pix >= H * W) return;
+  const int v = pix / W;
+  const int u = pix - v * W;
+  const long long m = order[blockIdx.y];
+  const long long p = m * H * W + pix;
+  const float2 f = __ldg(reinterpret_cast<const float2*>(flow) + p);
+  const Taps t = taps_at(f.x, f.y, u, v, H, W);
+
+  const int cx0 = min(max(t.x0, 0), W - 1);
+  const int cx1 = min(max(t.x1, 0), W - 1);
+  const int cy0 = min(max(t.y0, 0), H - 1);
+  const int cy1 = min(max(t.y1, 0), H - 1);
+  const int c0 = threadIdx.x * VPT * kN;
+  const T* base = feat + (long long)src[m] * H * (long long)W * C + c0;
+  const T* corner[4] = {base + ((long long)cy0 * W + cx0) * C,
+                        base + ((long long)cy0 * W + cx1) * C,
+                        base + ((long long)cy1 * W + cx0) * C,
+                        base + ((long long)cy1 * W + cx1) * C};
+  const bool valid[4] = {t.vy0 && t.vx0, t.vy0 && t.vx1, t.vy1 && t.vx0,
+                         t.vy1 && t.vx1};
+  const float w[4] = {t.w00, t.w01, t.w10, t.w11};
+
+  // every load in flight before the first product
+  Raw raw[VPT][4];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      raw[k][q] = load_nc<Raw>(corner[q] + k * kN, valid[q]);
+
+  T* o = out + p * C + c0;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    float val[4][kN], acc[kN];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) V::widen(raw[k][q], val[q]);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      float a = __fmul_rn(val[0][c], w[0]);
+      a = __fadd_rn(a, __fmul_rn(val[1][c], w[1]));
+      a = __fadd_rn(a, __fmul_rn(val[2][c], w[2]));
+      acc[c] = __fadd_rn(a, __fmul_rn(val[3][c], w[3]));
+    }
+    V::store(o + k * kN, acc);
+  }
+}
+
 template <typename T>
 __global__ void warp2d_pairs_bwd_kernel(const float* __restrict__ flow,
                                         const int* __restrict__ src,
@@ -183,12 +323,47 @@ inline dim3 grid_for(int M, int H, int W, int C) {
 }
 
 template <typename T>
-int fwd(const void* feat, const float* flow, const int* src, void* out, int M,
-        int H, int W, int C, void* stream) {
+int fwd_scalar(const void* feat, const float* flow, const int* src, void* out,
+               int M, int H, int W, int C, void* stream) {
   warp2d_pairs_fwd_kernel<T>
       <<<grid_for(M, H, W, C), kThreads, 0, (cudaStream_t)stream>>>(
           (const T*)feat, flow, src, (T*)out, H, W, C);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int VPT>
+int fwd_vec(const void* feat, const float* flow, const int* src,
+            const int* order, void* out, int M, int H, int W, int C,
+            void* stream) {
+  const int G = C / (Vec<T>::kN * VPT);
+  if (G < 1 || G > kThreads || G * Vec<T>::kN * VPT != C)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(G, kThreads / G);
+  const dim3 grid((H * W + block.y - 1) / block.y, M);
+  warp2d_pairs_fwd_vec_kernel<T, VPT>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (const T*)feat, flow, src, order, (T*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const void* feat, const float* flow, const int* src,
+        const int* order, void* out, int M, int H, int W, int C, int vpt,
+        void* stream) {
+  switch (vpt) {
+    case 0:
+      return fwd_scalar<T>(feat, flow, src, out, M, H, W, C, stream);
+    case 1:
+      return fwd_vec<T, 1>(feat, flow, src, order, out, M, H, W, C, stream);
+    case 2:
+      return fwd_vec<T, 2>(feat, flow, src, order, out, M, H, W, C, stream);
+    case 4:
+      return fwd_vec<T, 4>(feat, flow, src, order, out, M, H, W, C, stream);
+    case 8:
+      return fwd_vec<T, 8>(feat, flow, src, order, out, M, H, W, C, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -207,13 +382,23 @@ int bwd(const float* flow, const int* src, const void* g, float* scratch,
 
 // feat: contiguous (S, H, W, C), float32 (bf16 = 0) or bfloat16 (bf16 = 1);
 // flow: contiguous (M, H, W, 2) float32 in pixels, (u, v); src: (M,) int32 on
-// the device, 0 <= src[m] < S; out: contiguous (M, H, W, C) in feat's type.
-// Returns cudaGetLastError() after the launch.
+// the device, 0 <= src[m] < S; order: (M,) int32 on the device, a
+// permutation of 0..M-1 (the launch order of the pairs: grouped by source);
+// out: contiguous (M, H, W, C) in feat's type. vpt = 0 launches the scalar
+// kernel (one thread per element; order unused); vpt = 1, 2, 4 or 8 the
+// vector kernel, each thread owning vpt 16-byte vectors of a pixel's
+// channels, which needs C a multiple of 8 * vpt (bf16) or 4 * vpt
+// (float32), at most 256 threads a pixel, feat and out 16-byte aligned and
+// flow 8-byte aligned. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a vpt or C that the vector kernel does not take.
 extern "C" int dis_warp2d_pairs_fwd(const void* feat, const float* flow,
-                                    const int* src, void* out, int M, int H,
-                                    int W, int C, int bf16, void* stream) {
-  return bf16 ? fwd<__nv_bfloat16>(feat, flow, src, out, M, H, W, C, stream)
-              : fwd<float>(feat, flow, src, out, M, H, W, C, stream);
+                                    const int* src, const int* order,
+                                    void* out, int M, int H, int W, int C,
+                                    int bf16, int vpt, void* stream) {
+  return bf16 ? fwd<__nv_bfloat16>(feat, flow, src, order, out, M, H, W, C,
+                                   vpt, stream)
+              : fwd<float>(feat, flow, src, order, out, M, H, W, C, vpt,
+                           stream);
 }
 
 // flow, src as above; g: contiguous (M, H, W, C) float32 or bfloat16;

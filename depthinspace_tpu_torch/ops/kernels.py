@@ -43,7 +43,8 @@ launches = {"census_sad_fwd": 0, "xwarp_fwd": 0, "warp2d_fwd": 0,
             "warp2d_pairs_bwd": 0, "warp2d_v1_bwd": 0}
 
 _lib = None
-# device copies of the static pair tables of warp2d_pairs, per call site
+# device copies of the static pair tables of warp2d_pairs and their
+# source-major orders, per call site
 _src_tables: dict = {}
 
 
@@ -119,34 +120,39 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         so, _ = build()
-        lib = ctypes.CDLL(str(so))
-        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_float)
-        lib.dis_census_sad_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
-                                           ptr]
-        lib.dis_census_sad_fwd.restype = i32
-        lib.dis_xwarp_fwd.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, ptr]
-        lib.dis_xwarp_fwd.restype = i32
-        lib.dis_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.dis_warp2d_fwd.restype = i32
-        lib.dis_census_sad_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                           f32, f32, f32, ptr]
-        lib.dis_census_sad_bwd.restype = i32
-        lib.dis_xwarp_bwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32,
-                                      ptr]
-        lib.dis_xwarp_bwd.restype = i32
-        lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.dis_warp2d_bwd.restype = i32
-        lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                             i32, i32, i32, ptr]
-        lib.dis_warp2d_pairs_fwd.restype = i32
-        lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
-                                             i32, i32, i32, i32, i32, ptr]
-        lib.dis_warp2d_pairs_bwd.restype = i32
-        lib.dis_error_string.argtypes = [i32]
-        lib.dis_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(so)))
     return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of the entry points of ``csrc/`` on lib."""
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_float)
+    lib.dis_census_sad_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
+                                       ptr]
+    lib.dis_census_sad_fwd.restype = i32
+    lib.dis_xwarp_fwd.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32,
+                                  ptr]
+    lib.dis_xwarp_fwd.restype = i32
+    lib.dis_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_fwd.restype = i32
+    lib.dis_census_sad_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       f32, f32, f32, ptr]
+    lib.dis_census_sad_bwd.restype = i32
+    lib.dis_xwarp_bwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32,
+                                  ptr]
+    lib.dis_xwarp_bwd.restype = i32
+    lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_bwd.restype = i32
+    lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
+                                         i32, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_pairs_fwd.restype = i32
+    lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
+                                         i32, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_pairs_bwd.restype = i32
+    lib.dis_error_string.argtypes = [i32]
+    lib.dis_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check(name: str, t: torch.Tensor, ndim: int,
@@ -247,13 +253,25 @@ def _xwarp_shapes(kernel: str, pattern: torch.Tensor,
     return N, H, W, 0 if pattern.dim() == 2 else H * W
 
 
+XWARP_MAX_W = 12288   # a staged pattern row in 48 KB of shared memory
+
+
+def xwarp_fwd_vec(W: int, *ptrs: int) -> int:
+    """The pixels each item of K2's forward holds: 4 (float4 loads and
+    stores) when W % 4 == 0 and every pointer is 16-byte aligned, else 1."""
+    return 4 if W % 4 == 0 and not any(p % 16 for p in ptrs) else 1
+
+
 def xwarp_fwd(pattern: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """K2: pattern (H, W) or (N, H, W), disp (N, H, W) -> (N, H, W)."""
     N, H, W, stride = _xwarp_shapes("xwarp_fwd", pattern, disp)
+    if W > XWARP_MAX_W:
+        raise ValueError(f"xwarp_fwd: at most {XWARP_MAX_W} columns, got {W}")
     out = torch.empty_like(disp)
     if out.numel():
-        _launch("xwarp_fwd", library().dis_xwarp_fwd, pattern.data_ptr(),
-                stride, disp.data_ptr(), out.data_ptr(), N, H, W,
+        ptrs = (pattern.data_ptr(), disp.data_ptr(), out.data_ptr())
+        _launch("xwarp_fwd", library().dis_xwarp_fwd, ptrs[0], stride,
+                ptrs[1], ptrs[2], N, H, W, xwarp_fwd_vec(W, *ptrs),
                 device=disp.device)
     return out
 
@@ -335,12 +353,40 @@ def warp2d_v1_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 _PAIR_TYPES = (torch.float32, torch.bfloat16)
+# the channels of one 16-byte vector in K4's vector forward
+VEC_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}
+# the vectors of a pixel's channels that one thread of it owns: 2 was the
+# fastest of 1, 2, 4 and 8 at the DIS-MF shapes in both types
+# (scripts/ab_torch_kernels.py)
+PAIRS_VPT = 2
+
+
+def pairs_fwd_vpt(C: int, dtype: torch.dtype, feat_ptr: int, flow_ptr: int,
+                  out_ptr: int) -> int:
+    """Which kernel K4's forward launches: the vectors of a pixel's C
+    channels (8 bfloat16 or 4 float32 each) that one thread of the vector
+    kernel owns, or 0 for the scalar kernel (one thread per element). The
+    vector kernel needs C a multiple of the vector, at most 256 threads a
+    pixel, feat and out 16-byte aligned and flow 8-byte aligned; a thread
+    owns PAIRS_VPT vectors where C holds a whole number of them, else one."""
+    n = VEC_CHANNELS[dtype]
+    if C % n or C // n > 256 or (feat_ptr | out_ptr) % 16 or flow_ptr % 8:
+        return 0
+    return PAIRS_VPT if C % (n * PAIRS_VPT) == 0 else 1
+
+
+def source_major_order(src) -> tuple:
+    """The pairs grouped by source, sources ascending, in table order
+    within a source: the order in which K4's vector forward runs them, so
+    the pairs that read one source plane run while it is in L2."""
+    return tuple(sorted(range(len(src)), key=lambda m: src[m]))
 
 
 def _src_table(kernel: str, src_idx, S: int, M: int,
                device: torch.device) -> torch.Tensor:
-    """The static pair table as an int32 (M,) tensor on ``device``, checked
-    on the host (0 <= src[m] < S) and made once per table and device."""
+    """The static pair table and its source-major order as an int32
+    (2, M) tensor on ``device``, checked on the host (0 <= src[m] < S) and
+    made once per table and device."""
     key = (tuple(src_idx), device)
     table = _src_tables.get(key)
     if table is None:
@@ -352,7 +398,8 @@ def _src_table(kernel: str, src_idx, S: int, M: int,
             raise ValueError(f"{kernel}: source indices must be ints in "
                              f"[0, {S}), got {src}")
         with torch.inference_mode(False):
-            table = torch.tensor(src, dtype=torch.int32, device=device)
+            table = torch.tensor([src, source_major_order(src)],
+                                 dtype=torch.int32, device=device)
         _src_tables[key] = table
     return table
 
@@ -370,8 +417,9 @@ def _pairs_shapes(kernel: str, name: str, x: torch.Tensor, flow: torch.Tensor,
         raise ValueError(f"{kernel}: flow {tuple(flow.shape)} does not fit "
                          f"{name} {tuple(x.shape)}")
     _grid_fits(kernel, M, H)
-    if W * C >= 2 ** 31:
-        raise ValueError(f"{kernel}: a row's W*C elements must fit in int32")
+    if W * C >= 2 ** 31 or H * W >= 2 ** 31:
+        raise ValueError(f"{kernel}: a row's W*C elements and a plane's H*W "
+                         "pixels must fit in int32")
     return M, H, W, C
 
 
@@ -379,16 +427,20 @@ def warp2d_pairs_fwd(feat: torch.Tensor, flow: torch.Tensor,
                      src_idx) -> torch.Tensor:
     """K4: out[m] = warp(feat[src_idx[m]], flow[m]). feat (S, H, W, C)
     float32 or bfloat16, flow (M, H, W, 2) float32, src_idx a sequence of M
-    ints in [0, S) -> (M, H, W, C) in feat's dtype."""
+    ints in [0, S) -> (M, H, W, C) in feat's dtype. The vector kernel or the
+    scalar one, as :func:`pairs_fwd_vpt` chooses by shape and alignment;
+    both count as warp2d_pairs_fwd."""
     S = feat.shape[0] if feat.dim() == 4 else 0
     M, H, W, C = _pairs_shapes("warp2d_pairs_fwd", "feat", feat, flow, S)
-    src = _src_table("warp2d_pairs_fwd", src_idx, S, M, feat.device)
+    table = _src_table("warp2d_pairs_fwd", src_idx, S, M, feat.device)
     out = torch.empty((M, H, W, C), dtype=feat.dtype, device=feat.device)
     if out.numel():
+        vpt = pairs_fwd_vpt(C, feat.dtype, feat.data_ptr(), flow.data_ptr(),
+                            out.data_ptr())
         _launch("warp2d_pairs_fwd", library().dis_warp2d_pairs_fwd,
-                feat.data_ptr(), flow.data_ptr(), src.data_ptr(),
-                out.data_ptr(), M, H, W, C, int(feat.dtype == torch.bfloat16),
-                device=feat.device)
+                feat.data_ptr(), flow.data_ptr(), table[0].data_ptr(),
+                table[1].data_ptr(), out.data_ptr(), M, H, W, C,
+                int(feat.dtype == torch.bfloat16), vpt, device=feat.device)
     return out
 
 
@@ -401,7 +453,7 @@ def warp2d_pairs_bwd(flow: torch.Tensor, src_idx, g: torch.Tensor,
     to run."""
     M, H, W, C = _pairs_shapes("warp2d_pairs_bwd", "g", g, flow,
                                flow.shape[0] if flow.dim() == 4 else -1)
-    src = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)
+    src = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)[0]
     bf16 = g.dtype == torch.bfloat16
     scratch = torch.empty((S, H, W, C), dtype=torch.float32, device=g.device)
     grad = torch.empty_like(scratch, dtype=g.dtype) if bf16 else scratch

@@ -50,20 +50,50 @@ def test_census_kernel_matches_plain(cuda, shape):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("N,H,W", [(3, 37, 50), (8, 512, 432)])
+# W % 4 != 0 (one pixel an item) and == 0 (float4 items), ragged and at
+# the eval step's and the train step's shapes
+@pytest.mark.parametrize("N,H,W", [(3, 37, 50), (3, 37, 48), (1, 5, 3),
+                                   (8, 512, 432), (32, 512, 432)])
 def test_xwarp_kernel_matches_plain(cuda, N, H, W):
     pat = _randn((H, W), 2, cuda)
     rng = np.random.RandomState(3)
     disp = torch.from_numpy(rng.uniform(-3.0, W + 3.0, (N, H, W)).astype(
         np.float32)).to(cuda)
+    assert kernels.xwarp_fwd_vec(W, pat.data_ptr(), disp.data_ptr()) == \
+        (4 if W % 4 == 0 else 1)
     before = kernels.launches["xwarp_fwd"]
     out = warp_pattern(pat, disp)
+    # pattern batch stride H*W: each image's row is staged
     out_n = warp_pattern(pat.expand(N, H, W).contiguous(), disp)
     torch.cuda.synchronize()
     assert kernels.launches["xwarp_fwd"] == before + 2
     # round-to-nearest intrinsics in the plain version's order: exact
     torch.testing.assert_close(out, xwarp_plain(pat, disp), rtol=0, atol=0)
     torch.testing.assert_close(out_n, out, rtol=0, atol=0)
+
+
+def _offset_by_one(x):
+    """A contiguous copy of x whose data starts 4 bytes past an aligned
+    address (not 16-byte aligned)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def test_xwarp_kernel_unaligned_rows_take_one_pixel_items(cuda):
+    N, H, W = 4, 19, 44
+    pat = _randn((H, W), 7, cuda)
+    disp = torch.from_numpy(np.random.RandomState(8).uniform(
+        -3.0, W + 3.0, (N, H, W)).astype(np.float32)).to(cuda)
+    disp1 = _offset_by_one(disp)
+    assert kernels.xwarp_fwd_vec(W, pat.data_ptr(), disp1.data_ptr()) == 1
+    out = kernels.xwarp_fwd(pat, disp1)
+    out_n = kernels.xwarp_fwd(_offset_by_one(pat.expand(N, H, W)), disp)
+    torch.cuda.synchronize()
+    ref = xwarp_plain(pat, disp)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(out_n, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("M,H,W,C,max_flow", [(3, 37, 50, 1, 30.0),
@@ -253,6 +283,46 @@ def test_warp2d_pairs_kernels_match_plain(cuda, shape, src, dtype):
     else:
         torch.testing.assert_close(grad.float(), ref.float(), rtol=2 ** -6,
                                    atol=1e-5)
+
+
+# K4's vector forward: 8 and 4 channels a 16-byte vector, tables that
+# repeat and skip planes, a ragged plane
+VECTOR_CASES = [(torch.bfloat16, 8), (torch.bfloat16, 16),
+                (torch.bfloat16, 32), (torch.float32, 4), (torch.float32, 32)]
+
+
+@pytest.mark.parametrize("src", [(0, 2, 2, 0, 2, 0), (1, 1, 1, 0, 0, 1)])
+@pytest.mark.parametrize("dtype,C", VECTOR_CASES)
+def test_warp2d_pairs_vector_forward_is_exact(cuda, dtype, C, src):
+    feat, flow, src, _ = _pair_inputs(cuda, (3, 21, 19, C), src, dtype, 45)
+    out_ptr = torch.empty(16, device=cuda).data_ptr()
+    assert kernels.pairs_fwd_vpt(C, dtype, feat.data_ptr(), flow.data_ptr(),
+                                 out_ptr) > 0
+    before = kernels.launches["warp2d_pairs_fwd"]
+    out = flow_warp_pairs(feat, flow, src)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_pairs_fwd"] == before + 1
+    torch.testing.assert_close(out, warp2d_pairs_plain(feat, flow, src),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp2d_pairs_scalar_forward_is_exact(cuda, dtype):
+    """C = 1 and 5, and 32 channels that start off a 16-byte boundary, take
+    the scalar kernel."""
+    cases = [((3, 9, 7, 1), None), ((3, 37, 50, 5), None),
+             ((3, 21, 19, 32), _offset_by_one)]
+    for shape, move in cases:
+        feat, flow, src, _ = _pair_inputs(cuda, shape, (2, 0, 1, 2, 0, 1),
+                                          dtype, 46)
+        if move is not None:
+            feat = move(feat)
+        assert kernels.pairs_fwd_vpt(shape[-1], dtype, feat.data_ptr(),
+                                     flow.data_ptr(), 0) == 0
+        out = kernels.warp2d_pairs_fwd(feat, flow, src)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, warp2d_pairs_plain(feat, flow, src),
+                                   rtol=0, atol=0)
 
 
 def test_warp2d_pairs_bwd_matches_finite_differences(cuda):
