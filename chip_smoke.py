@@ -8,7 +8,8 @@ Phases, one or more lines each; any failure raises and exits nonzero:
 1. probe   the card, torch, CUDA, nvcc, nvidia-smi (exits nonzero without
            a CUDA card);
 2. build   the CUDA kernels of csrc/ with nvcc for sm_90a, one nvcc per
-           source, all at once;
+           source, all at once, and beside them the variant library
+           (kernels.VARIANT_FLAGS) that times K4 backward's parts;
 3. kernels each kernel (K1 census-SAD, K2 pattern warp, K3 flow warp, K4
            pair-indexed flow warp in bf16 and f32, K5 = K3's kernels through
            the warp_kernel.warp2d entry point, and their backward kernels)
@@ -19,7 +20,11 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            computes the same function where there is one (F.grid_sample and
            its backward; for K4 also index_select + grid_sample, since K4
            gathers its sources itself), and the kernel's bound; K2 timed at
-           both shapes; the kernel K4's forward takes (vector or scalar);
+           both shapes; K3's forward at each call of the main paths (C = 1
+           and 3 of the SF loss, C = 5 of the MF loss and of FuseNet's
+           geometry warp), with the path it takes; the kernels K4's
+           forward and backward take (vector or scalar), and K4's backward
+           split into its zeroing, scatter and cast, each timed alone;
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
            ragged 13-image request (8 + 5), maps/s;
 5. eval    the DIS-SF evaluation step on a (tl=4, bs=2) synthetic track batch
@@ -72,6 +77,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -242,9 +248,16 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # -- 2. build ---------------------------------------------------------
-    so, build_s = kernels.build()
+    # the library of the main paths, and beside it (in parallel) the one
+    # with the variants' entry points, through which phase 3 times K4
+    # backward's parts alone
+    with ThreadPoolExecutor(1) as pool:
+        variants = pool.submit(kernels.build, kernels.VARIANT_FLAGS)
+        so, build_s = kernels.build()
+        vso, vbuild_s = variants.result()
     kernels.library()
-    print(f"[build] {so.relative_to(ROOT)} in {build_s:.1f} s (nvcc, sm_90a)")
+    print(f"[build] {so.relative_to(ROOT)} in {build_s:.1f} s (nvcc, sm_90a)"
+          f"; variant library {vso.relative_to(ROOT)} in {vbuild_s:.1f} s")
     for line in (so.parent / "ptxas.log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] ptxas: {line.strip()}")
@@ -332,33 +345,59 @@ def main() -> None:
            bound_ms(2 * 4 * px + 4 * H * W),
            f"pattern {tuple(pattern.shape)} disp {tuple(disp.shape)}")
     # one geometric-loss evaluation makes one C=1 and one C=3 call
-    grid_f = grid_of(f0[..., 0] + u, f0[..., 1] + v)
-    k3 = {}
-    for img in (img1, img3):
+    def k3_call(img, flow, label):
+        """K3's forward on one call of a main path: its error, the kernel's,
+        the plain version's and grid_sample's times, its bound and the path
+        the wrapper takes; one printed line."""
+        M_, h_, w_, C_ = img.shape
         nchw = img.permute(0, 3, 1, 2).contiguous()
-        out, ref = flow_warp(img, f0), warp2d_plain(img, f0)
+        uu = torch.arange(w_, dtype=torch.float32, device=dev)
+        vv = torch.arange(h_, dtype=torch.float32, device=dev)[:, None]
+        grid = grid_of(flow[..., 0] + uu, flow[..., 1] + vv)
+        out, ref = flow_warp(img, flow), warp2d_plain(img, flow)
         torch.cuda.synchronize()
-        k3[img.shape[-1]] = (
-            float((out - ref).abs().max()),
-            cuda_ms(lambda: flow_warp(img, f0)),
-            cuda_ms(lambda: warp2d_plain(img, f0)),
-            cuda_ms(lambda: F.grid_sample(nchw, grid_f, mode="bilinear",
-                                          padding_mode="zeros",
-                                          align_corners=True)))
-        print(f"[kernel] warp2d_fwd C={img.shape[-1]} {tuple(img.shape)}: "
-              "max|kernel-plain| %.3g kernel %.4f ms plain %.4f ms library "
-              "%.4f ms" % k3[img.shape[-1]])
+        ppt = kernels.warp2d_fwd_path(C_, M_ * h_ * w_, flow.data_ptr(),
+                                      out.data_ptr())
+        path = "first design" if ppt == 0 else f"vector, {ppt} px a thread"
+        # each input read once (flow, the image), the output written once
+        b = bound_ms(4 * M_ * h_ * w_ * (2 + 2 * C_))
+        r = dict(max_abs_err=float((out - ref).abs().max()),
+                 ms=cuda_ms(lambda: flow_warp(img, flow)),
+                 plain_ms=cuda_ms(lambda: warp2d_plain(img, flow)),
+                 library_ms=cuda_ms(lambda: F.grid_sample(
+                     nchw, grid, mode="bilinear", padding_mode="zeros",
+                     align_corners=True)),
+                 bound_ms=b[0], bound_by=b[1], path=path)
+        print(f"[kernel] warp2d_fwd C={C_} {tuple(img.shape)} ({label}; "
+              f"{path}): max|kernel-plain| {r['max_abs_err']:.3g} kernel "
+              f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+              f"{r['library_ms']:.4f} ms bound {b[0]:.4f} ms ({b[1]}; "
+              f"{b[0] / r['ms']:.0%} of it)")
+        check(r["max_abs_err"] <= TOL["warp2d_fwd"]
+              and bool(torch.isfinite(out).all()),
+              f"warp2d_fwd C={C_} {label} disagrees with its plain version: "
+              f"{r['max_abs_err']}")
+        check(ppt > 0, f"warp2d_fwd C={C_} {label} took the first design")
+        return r
+
+    k3 = {img.shape[-1]: k3_call(img, f0, "SF geometric loss")
+          for img in (img1, img3)}
     m3 = f0.shape[0] * H * W
-    err3 = max(v_[0] for v_ in k3.values())
-    check(err3 <= TOL["warp2d_fwd"],
-          f"warp2d_fwd disagrees with its plain version: {err3}")
     b3 = bound_ms(4 * m3 * (2 + 1 + 1) + 4 * m3 * (2 + 3 + 3))
+    # the row's headline: one SF geometric-loss evaluation (C=1 + C=3);
+    # each call of the main paths beside it under "calls"
     results["warp2d_fwd"] = dict(
-        max_abs_err=err3, ms=sum(v_[1] for v_ in k3.values()),
-        plain_ms=sum(v_[2] for v_ in k3.values()),
-        library_ms=sum(v_[3] for v_ in k3.values()), bound_ms=b3[0],
-        bound_by=b3[1])
-    print(f"[kernel] warp2d_fwd C=1 + C=3: bound {b3[0]:.4f} ms ({b3[1]})")
+        max_abs_err=max(r["max_abs_err"] for r in k3.values()),
+        ms=sum(r["ms"] for r in k3.values()),
+        plain_ms=sum(r["plain_ms"] for r in k3.values()),
+        library_ms=sum(r["library_ms"] for r in k3.values()),
+        bound_ms=b3[0], bound_by=b3[1],
+        calls={f"SF loss C={c} {tuple(f0.shape[:3])}": r
+               for c, r in k3.items()})
+    print(f"[kernel] warp2d_fwd C=1 + C=3: kernel "
+          f"{results['warp2d_fwd']['ms']:.4f} ms library "
+          f"{results['warp2d_fwd']['library_ms']:.4f} ms bound {b3[0]:.4f} "
+          f"ms ({b3[1]}; {b3[0] / results['warp2d_fwd']['ms']:.0%} of it)")
 
     # backward kernels at the train step's shapes (tl=4, bs=8)
     nt = TL * TRAIN_BS
@@ -475,6 +514,42 @@ def main() -> None:
     S_mf = TL * MF_TRACKS
     rng_p = np.random.RandomState(SEED + 11)
     k4 = {}
+    parts = {torch.bfloat16: {}, torch.float32: {}}
+    table_mf = kernels._src_table("warp2d_pairs_bwd", src_mf, S_mf,
+                                  len(src_mf), dev)
+
+    def k4_bwd_parts(pf, g, S):
+        """The path K4's backward takes, and its zeroing, scatter and cast
+        timed each alone through the variant library's entry point (the
+        launch counts are the wrapper's and do not move)."""
+        M_, h_, w_, C_ = g.shape
+        bf16 = int(g.dtype == torch.bfloat16)
+        scratch = torch.zeros((S, h_, w_, C_), device=dev)
+        grad = torch.empty((S, h_, w_, C_), dtype=g.dtype, device=dev)
+        vector = kernels.pairs_bwd_path(C_, g.dtype, g.data_ptr(),
+                                        pf.data_ptr(), scratch.data_ptr())
+        check(vector, f"warp2d_pairs_bwd {g.dtype} took the scalar scatter "
+              "at the MF shapes")
+        lib = kernels.variant_library()
+
+        def run(part):
+            # the wrapper's vector scatter: 1 vector a thread, 8 pixels
+            err = lib.dis_ab_warp2d_pairs_bwd(
+                pf.data_ptr(), table_mf[0].data_ptr(), table_mf[1].data_ptr(),
+                g.data_ptr(), scratch.data_ptr(),
+                grad.data_ptr() if bf16 else None, S, M_, h_, w_, C_, bf16,
+                1, 8, part, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"warp2d_pairs_bwd part {part}: CUDA error {err}")
+
+        out = {"path": "vector, one 4-channel vector of 8 pixels a thread",
+               "zeroing": cuda_ms(lambda: run(1)),
+               "scatter": cuda_ms(lambda: run(2))}
+        if bf16:
+            out["cast"] = cuda_ms(lambda: run(4))
+        print(f"[kernel] warp2d_pairs_bwd {g.dtype} {h_}x{w_}x{C_}: "
+              + "; ".join(f"{k} {v:.4f} ms" if k != "path" else v
+                          for k, v in out.items()))
+        return out
     for dt in (torch.bfloat16, torch.float32):
         elt = 2 if dt == torch.bfloat16 else 4
         # err, ms, plain, library, index_select + library
@@ -497,6 +572,10 @@ def main() -> None:
                   "at the MF shapes")
             grad = bwd(lambda x: flow_warp_pairs(x, pf, src_mf), feat, g)
             ref_g = warp2d_pairs_bwd_plain(pf, src_mf, g, S_mf)
+            split = k4_bwd_parts(pf, g, S_mf)
+            parts[dt]["path"] = split.pop("path")
+            for part, t in split.items():
+                parts[dt][part] = parts[dt].get(part, 0.0) + t
             torch.cuda.synchronize()
             err_f = float((out.float() - ref.float()).abs().max())
             dg = (grad.float() - ref_g.float()).abs()
@@ -570,6 +649,11 @@ def main() -> None:
             if k == "fwd":
                 k4[(k, dt)].update(library_gather_ms=acc[k][4], path=k4_path)
                 lib += f", index_select + grid_sample {acc[k][4]:.4f} ms"
+            else:
+                k4[(k, dt)].update(parts[dt])
+                lib += (f"; {parts[dt]['path']}; alone: " + ", ".join(
+                    f"{p_} {t:.4f} ms" for p_, t in parts[dt].items()
+                    if p_ != "path"))
             print(f"[kernel] warp2d_pairs_{k} {dt} (both scales): kernel "
                   f"{acc[k][1]:.4f} ms, {lib}, bound {b[0]:.4f} ms ({b[1]}; "
                   f"{b[0] / acc[k][1]:.0%} of it)")
@@ -607,6 +691,20 @@ def main() -> None:
            bound_ms(4 * m5 * (2 + 1 + 1)),
            f"flow {tuple(f0_mf.shape)} g {tuple(g5.shape)}")
     del img5, g5, grid5, img5n, g5n
+    # K3 at C = 5, the MF path's other calls: the MF geometric loss's
+    # (flow, ambient, projected primary pixel) sample at full resolution
+    # and FuseNet's geometry warp (xyz and the reverse flow) at 256x216
+    from depthinspace_tpu_torch.models.fusenet import _resize_flow_grid
+    k3r = results["warp2d_fwd"]
+    f_fuse = _pair_flows(_resize_flow_grid(flow_mf, H // 2, W // 2))
+    for label, flow in (("MF geometric loss", f0_mf),
+                        ("FuseNet geometry warp", f_fuse)):
+        img = torch.as_tensor(rng_p.rand(*flow.shape[:3], 5).astype(
+            np.float32), device=dev)
+        r = k3_call(img, flow, label)
+        k3r["calls"][f"{label} C=5 {tuple(flow.shape[:3])}"] = r
+        k3r["max_abs_err"] = max(k3r["max_abs_err"], r["max_abs_err"])
+        del img
     del es_t, ta_t, g_t, pat_t, grid_t, g_k3, img_k3, grid_k3
     torch.cuda.empty_cache()
 

@@ -38,8 +38,7 @@
 //     16-byte store a vector. Neighbouring pixels share corners, which L1
 //     serves. The wrapper takes VPT = 2 where C allows it (else 1): at
 //     C = 32 it was faster than one vector a thread and than a whole pixel
-//     a thread (4 or 8 vectors) in both types. VPT = 4 and 8 stay
-//     instantiated for that comparison (scripts/ab_torch_kernels.py);
+//     a thread (4 or 8 vectors) in both types;
 //   - a block is (C / (8 or 4) / VPT threads of a pixel) x (pixels), over
 //     a pair's whole plane, so no row leaves a ragged block;
 //   - the grid's pair axis walks `order`, the pairs grouped by source: the
@@ -56,13 +55,44 @@
 // either); nothing is a matrix product, so tensor cores do not apply.
 //
 // The backward scatters w*g to the four valid corners of plane src[m] with
-// float atomicAdd into a float32 (S, H, W, C) scratch that the launcher
-// zeroes on the stream, one thread per element; for bfloat16 a cast kernel
-// then rounds the scratch into the bf16 gradient, as the TPU kernel casts
-// its f32 grad_pad. The atomics make the bits of a sum of three or more
-// contributions vary from run to run. The TPU kernel's grid needed every
-// source in the same number of pairs; this one takes any table with
-// 0 <= src[m] < S (the wrapper checks it on the host).
+// float atomics into a float32 (S, H, W, C) scratch that the launcher
+// zeroes on the stream; for bfloat16 a cast kernel then rounds the scratch
+// into the bf16 gradient, as the TPU kernel casts its f32 grad_pad. The
+// atomics make the bits of a sum of three or more contributions vary from
+// run to run. The TPU kernel's grid needed every source in the same number
+// of pairs; this one takes any table with 0 <= src[m] < S (the wrapper
+// checks it on the host).
+//
+// What bounds the backward on the H100: the atomics in L2. At the DIS-MF
+// shapes (S = 16, M = 48, C = 32, 256x216 + 128x108) one thread per
+// element (the first design, kept as the scalar path) makes ~425 M scalar
+// f32 atomics; each warp covers one corner's 32 channels, so its atomics
+// reach L2 as one 128-byte request, and bf16 (0.96 ms) ran slower than
+// f32 (0.87 ms) at 10-20 % of the byte bound. 16-byte vectors of g (8 bf16
+// or 4 f32 channels) a thread, each added with float4 atomics at the
+// thread's own channels, were slower still in bf16 (1.24 ms): a warp's
+// atomic then touched 16-byte pieces of 8 or 16 lines. The vector scatter:
+//   - a thread owns 4-channel vectors of g (one 16-byte float32 or 8-byte
+//     bfloat16 load), and the G = C / 4 threads of a pixel hold its
+//     channels in order, so each 16-byte vector atomic (sm_90, global
+//     memory) of the G threads covers a corner's whole 128-byte line at
+//     C = 32, and a warp's covers 4 pixels' corners;
+//   - a thread takes PX = 8 consecutive pixels of a row and sums in
+//     registers the corners that a pixel shares with its left neighbour
+//     (the same integer corner column, the usual case for a smooth flow),
+//     so PX pixels take 2*PX + 2 corner atomics instead of 4*PX;
+//   - the grid's pair axis walks the source-major `order`, so the 3 pairs
+//     that scatter into one 7 MB float32 plane run back to back while it
+//     sits in L2.
+// Taps and products stay those of the scalar kernel (w * g rounded to
+// nearest a channel). The scatter still takes ~80 % of the bf16 call; the
+// zeroing and the cast move 141 MB and 212 MB near the HBM rate. Two
+// vectors a thread (8-11 % slower) and 1, 2 or 4 pixels a thread (slower
+// the fewer) lost; they are built only with -DDIS_AB_VARIANTS, with an
+// entry point that runs one part of the call alone, for
+// scripts/ab_torch_kernels.py and chip_smoke.py to time. The wrapper takes
+// the scalar path for C not a multiple of 4, unaligned g or flow
+// (kernels.pairs_bwd_path).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -307,12 +337,158 @@ __global__ void warp2d_pairs_bwd_kernel(const float* __restrict__ flow,
     atomicAdd(base + ((long long)t.y1 * W + t.x1) * C, __fmul_rn(gc, t.w11));
 }
 
+// Four channels of g, widened to float32: one 16-byte load in float32,
+// one 8-byte load in bfloat16 (exact: the bits shifted up), both through
+// the read-only path.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 scale4(const float4& g, float w) {
+  return make_float4(__fmul_rn(g.x, w), __fmul_rn(g.y, w), __fmul_rn(g.z, w),
+                     __fmul_rn(g.w, w));
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// One column of a pixel's corners, (x, y) and (x, y + 1): their validity
+// and their VPT vectors of w * g, added into the scratch with one 16-byte
+// vector atomic (sm_90, global memory) each.
+template <int VPT>
+struct Column {
+  int x, y;
+  bool top, bottom;
+  float4 t[VPT], b[VPT];
+
+  __device__ void flush(float* plane, int W, int C, int G, int lane) const {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int c = 4 * (k * G + lane);
+      if (top)
+        atomicAdd(reinterpret_cast<float4*>(
+                      plane + ((long long)y * W + x) * C + c), t[k]);
+      if (bottom)
+        atomicAdd(reinterpret_cast<float4*>(
+                      plane + ((long long)(y + 1) * W + x) * C + c), b[k]);
+    }
+  }
+};
+
+// The vector scatter. Block (G, B): G threads on each of B groups of PX
+// consecutive pixels of a pair's plane; G = C / (4 * VPT) and thread l of
+// a group owns the 4-channel vectors k = 0..VPT-1 at channels
+// 4 * (k * G + l), so the G threads of a pixel cover G * 16 contiguous
+// bytes of a corner with each vector atomic (a whole 128-byte line at
+// C = 32, VPT = 1), as the scalar kernel's warp covers one corner's 32
+// channels. blockIdx.y walks the source-major order of the pairs, so the
+// pairs that scatter into one source plane run back to back while it sits
+// in L2. A thread loads its pixels' flows (float2) and g vectors first,
+// then computes each pixel's taps once and its w * g with one
+// round-to-nearest product a channel, as the scalar kernel. Where a
+// pixel's left column of corners is the previous pixel's right column
+// (the integer corner one to the right, the same row: the usual case for
+// a smooth flow), the two are summed in registers and added once, so PX
+// pixels in a row take 2 * PX + 2 corner atomics instead of 4 * PX.
+template <typename T, int VPT, int PX>
+__global__ void __launch_bounds__(256)
+    warp2d_pairs_bwd_vec_kernel(const float* __restrict__ flow,
+                                const int* __restrict__ src,
+                                const int* __restrict__ order,
+                                const T* __restrict__ g,
+                                float* __restrict__ grad, int H, int W,
+                                int C) {
+  const int G = blockDim.x;
+  const int lane = threadIdx.x;
+  const int HW = H * W;
+  const int pix0 = (blockIdx.x * blockDim.y + threadIdx.y) * PX;
+  if (pix0 >= HW) return;
+  const long long m = order[blockIdx.y];
+  const long long p0 = m * HW + pix0;
+  const int n = min(PX, HW - pix0);
+
+  float2 f[PX];
+  float4 gv[PX][VPT];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    if (j >= n) break;
+    f[j] = __ldg(reinterpret_cast<const float2*>(flow) + p0 + j);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k)
+      gv[j][k] = load4(g + (p0 + j) * C + 4 * (k * G + lane));
+  }
+
+  float* plane = grad + (long long)src[m] * HW * C;
+  int v = pix0 / W;
+  int u = pix0 - v * W;
+  Column<VPT> carry;  // the previous pixel's right column, not yet added
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    if (j >= n) break;
+    const Taps t = taps_at(f[j].x, f[j].y, u, v, H, W);
+    Column<VPT> left;
+    left.x = t.x0;
+    left.y = t.y0;
+    left.top = t.vy0 && t.vx0;
+    left.bottom = t.vy1 && t.vx0;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      left.t[k] = scale4(gv[j][k], t.w00);
+      left.b[k] = scale4(gv[j][k], t.w10);
+    }
+    if (j > 0 && carry.x == left.x && carry.y == left.y) {
+      // the same two corners (so the same validity): one sum, one add
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        left.t[k] = add4(carry.t[k], left.t[k]);
+        left.b[k] = add4(carry.b[k], left.b[k]);
+      }
+    } else if (j > 0) {
+      carry.flush(plane, W, C, G, lane);
+    }
+    left.flush(plane, W, C, G, lane);
+    carry.x = t.x1;
+    carry.y = t.y0;
+    carry.top = t.vy0 && t.vx1;
+    carry.bottom = t.vy1 && t.vx1;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      carry.t[k] = scale4(gv[j][k], t.w01);
+      carry.b[k] = scale4(gv[j][k], t.w11);
+    }
+    if (++u == W) {
+      u = 0;
+      ++v;
+    }
+  }
+  carry.flush(plane, W, C, G, lane);
+}
+
+// Rounds the float32 gradient into bfloat16: 4 elements an iteration (one
+// 16-byte load, one 8-byte store), then the tail; x and y are the
+// launcher's own allocations, 16- and 8-byte aligned.
 __global__ void f32_to_bf16_kernel(const float* __restrict__ x,
                                    __nv_bfloat16* __restrict__ y,
                                    long long n) {
+  using V = Vec<__nv_bfloat16>;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n4 = n / 4;
+  for (long long i = first; i < n4; i += stride) {
+    const float4 a = reinterpret_cast<const float4*>(x)[i];
+    reinterpret_cast<uint2*>(y)[i] =
+        make_uint2(V::pack(a.x, a.y), V::pack(a.z, a.w));
+  }
+  for (long long i = 4 * n4 + first; i < n; i += stride)
     y[i] = __float2bfloat16_rn(x[i]);
 }
 
@@ -357,25 +533,96 @@ int fwd(const void* feat, const float* flow, const int* src,
       return fwd_vec<T, 1>(feat, flow, src, order, out, M, H, W, C, stream);
     case 2:
       return fwd_vec<T, 2>(feat, flow, src, order, out, M, H, W, C, stream);
-    case 4:
-      return fwd_vec<T, 4>(feat, flow, src, order, out, M, H, W, C, stream);
-    case 8:
-      return fwd_vec<T, 8>(feat, flow, src, order, out, M, H, W, C, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int bwd(const float* flow, const int* src, const void* g, float* scratch,
-        int S, int M, int H, int W, int C, void* stream) {
-  const cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(float) * (size_t)S * H * W * C, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  warp2d_pairs_bwd_kernel<T>
-      <<<grid_for(M, H, W, C), kThreads, 0, (cudaStream_t)stream>>>(
-          flow, src, (const T*)g, scratch, H, W, C);
+template <typename T, int VPT, int PX>
+int bwd_vec(const float* flow, const int* src, const int* order,
+            const void* g, float* scratch, int M, int H, int W, int C,
+            cudaStream_t stream) {
+  const int G = C / (4 * VPT);
+  if (G < 1 || G > kThreads || G * 4 * VPT != C)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(G, kThreads / G);
+  const int groups = (H * W + PX - 1) / PX;
+  const dim3 grid((groups + block.y - 1) / block.y, M);
+  warp2d_pairs_bwd_vec_kernel<T, VPT, PX><<<grid, block, 0, stream>>>(
+      flow, src, order, (const T*)g, scratch, H, W, C);
   return (int)cudaGetLastError();
+}
+
+// The scatter alone, onto the scratch as it stands: vpt = 0 the scalar
+// scatter, vpt = 1 the vector scatter (one 4-channel vector of 8 pixels a
+// thread); with -DDIS_AB_VARIANTS also the variants that lost, vpt = 1 or
+// 2 vectors of px = 1, 2, 4 or 8 pixels.
+template <typename T>
+int scatter(const float* flow, const int* src, const int* order,
+            const void* g, float* scratch, int M, int H, int W, int C,
+            int vpt, int px, cudaStream_t s) {
+  if (vpt == 0) {
+    warp2d_pairs_bwd_kernel<T><<<grid_for(M, H, W, C), kThreads, 0, s>>>(
+        flow, src, (const T*)g, scratch, H, W, C);
+    return (int)cudaGetLastError();
+  }
+  if (vpt == 1 && px == 8)
+    return bwd_vec<T, 1, 8>(flow, src, order, g, scratch, M, H, W, C, s);
+#ifdef DIS_AB_VARIANTS
+  switch (10 * vpt + px) {
+    case 11:
+      return bwd_vec<T, 1, 1>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 12:
+      return bwd_vec<T, 1, 2>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 14:
+      return bwd_vec<T, 1, 4>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 21:
+      return bwd_vec<T, 2, 1>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 22:
+      return bwd_vec<T, 2, 2>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 24:
+      return bwd_vec<T, 2, 4>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+    case 28:
+      return bwd_vec<T, 2, 8>(flow, src, order, g, scratch, M, H, W,
+                              C, s);
+  }
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+int zero(float* scratch, long long n, cudaStream_t s) {
+  return (int)cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)n, s);
+}
+
+// Rounds the n floats of scratch into grad (bfloat16).
+int cast(const float* scratch, void* grad, long long n, cudaStream_t s) {
+  const int threads = 256;
+  const long long want = n / 4 / threads + 1;
+  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
+  if (n > 0)
+    f32_to_bf16_kernel<<<blocks, threads, 0, s>>>(
+        scratch, (__nv_bfloat16*)grad, n);
+  return (int)cudaGetLastError();
+}
+
+int bwd(const float* flow, const int* src, const int* order, const void* g,
+        float* scratch, void* grad_bf16, int S, int M, int H, int W, int C,
+        int bf16, int vpt, int px, cudaStream_t s) {
+  const long long n = (long long)S * H * W * C;
+  int err = zero(scratch, n, s);
+  if (err == 0)
+    err = bf16 ? scatter<__nv_bfloat16>(flow, src, order, g, scratch, M, H,
+                                        W, C, vpt, px, s)
+               : scatter<float>(flow, src, order, g, scratch, M, H, W, C,
+                                vpt, px, s);
+  if (err != 0 || !bf16) return err;
+  return cast(scratch, grad_bf16, n, s);
 }
 
 }  // namespace
@@ -385,8 +632,8 @@ int bwd(const float* flow, const int* src, const void* g, float* scratch,
 // the device, 0 <= src[m] < S; order: (M,) int32 on the device, a
 // permutation of 0..M-1 (the launch order of the pairs: grouped by source);
 // out: contiguous (M, H, W, C) in feat's type. vpt = 0 launches the scalar
-// kernel (one thread per element; order unused); vpt = 1, 2, 4 or 8 the
-// vector kernel, each thread owning vpt 16-byte vectors of a pixel's
+// kernel (one thread per element; order unused); vpt = 1 or 2 the vector
+// kernel, each thread owning vpt 16-byte vectors of a pixel's
 // channels, which needs C a multiple of 8 * vpt (bf16) or 4 * vpt
 // (float32), at most 256 threads a pixel, feat and out 16-byte aligned and
 // flow 8-byte aligned. Returns cudaGetLastError() after the launch, or
@@ -401,26 +648,50 @@ extern "C" int dis_warp2d_pairs_fwd(const void* feat, const float* flow,
                            stream);
 }
 
-// flow, src as above; g: contiguous (M, H, W, C) float32 or bfloat16;
-// scratch: contiguous (S, H, W, C) float32, zeroed here on the stream and
-// then the float32 gradient; grad_bf16: for bf16 = 1, a contiguous
-// (S, H, W, C) bfloat16 output that the scratch is rounded into (unused for
-// float32). Returns cudaGetLastError().
+// flow, src, order as above; g: contiguous (M, H, W, C) float32 or
+// bfloat16; scratch: contiguous (S, H, W, C) float32, 16-byte aligned,
+// zeroed here on the stream and then the float32 gradient; grad_bf16: for
+// bf16 = 1, a contiguous (S, H, W, C) bfloat16 output, 8-byte aligned, that
+// the scratch is rounded into (unused for float32). vector = 0 launches the
+// scalar scatter (one thread per element, in table order; order unused);
+// vector = 1 the vector scatter (each thread one 4-channel vector of 8
+// consecutive pixels), which needs C a multiple of 4, at most 256 threads
+// a pixel, g aligned to 4 channels (16 bytes in float32, 8 in bfloat16) and
+// flow 8-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a C that the vector scatter does not take.
 extern "C" int dis_warp2d_pairs_bwd(const float* flow, const int* src,
-                                    const void* g, float* scratch,
-                                    void* grad_bf16, int S, int M, int H,
-                                    int W, int C, int bf16, void* stream) {
-  if (!bf16)
-    return bwd<float>(flow, src, g, scratch, S, M, H, W, C, stream);
-  const int err =
-      bwd<__nv_bfloat16>(flow, src, g, scratch, S, M, H, W, C, stream);
-  if (err != 0) return err;
-  const long long n = (long long)S * H * W * C;
-  const int threads = 256;
-  const long long want = (n + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  if (blocks > 0)
-    f32_to_bf16_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        scratch, (__nv_bfloat16*)grad_bf16, n);
-  return (int)cudaGetLastError();
+                                    const int* order, const void* g,
+                                    float* scratch, void* grad_bf16, int S,
+                                    int M, int H, int W, int C, int bf16,
+                                    int vector, void* stream) {
+  return bwd(flow, src, order, g, scratch, grad_bf16, S, M, H, W, C, bf16,
+             vector ? 1 : 0, 8, (cudaStream_t)stream);
 }
+
+#ifdef DIS_AB_VARIANTS
+// For scripts/ab_torch_kernels.py and chip_smoke.py, built with
+// -DDIS_AB_VARIANTS only: dis_warp2d_pairs_bwd with the vector scatter's
+// shape chosen (vpt = 1 or 2 vectors a thread of px = 1, 2, 4 or 8 pixels;
+// vpt = 0 the scalar scatter), and parts = 7 for the whole call or one part
+// alone, to time it: the zeroing (1), the scatter (2, onto the scratch as
+// it stands) or the cast (4).
+extern "C" int dis_ab_warp2d_pairs_bwd(const float* flow, const int* src,
+                                       const int* order, const void* g,
+                                       float* scratch, void* grad_bf16,
+                                       int S, int M, int H, int W, int C,
+                                       int bf16, int vpt, int px, int parts,
+                                       void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (parts == 7)
+    return bwd(flow, src, order, g, scratch, grad_bf16, S, M, H, W, C, bf16,
+               vpt, px, s);
+  const long long n = (long long)S * H * W * C;
+  if (parts == 1) return zero(scratch, n, s);
+  if (parts == 4) return bf16 ? cast(scratch, grad_bf16, n, s) : 0;
+  if (parts != 2) return (int)cudaErrorInvalidValue;
+  return bf16 ? scatter<__nv_bfloat16>(flow, src, order, g, scratch, M, H, W,
+                                       C, vpt, px, s)
+              : scatter<float>(flow, src, order, g, scratch, M, H, W, C, vpt,
+                               px, s);
+}
+#endif

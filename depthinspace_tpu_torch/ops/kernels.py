@@ -33,6 +33,9 @@ SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu", "warp2d_pairs.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# adds the kernel variants that lost their A/B comparison, and entry points
+# that reach them, to a second library (variant_library)
+VARIANT_FLAGS = ("-DDIS_AB_VARIANTS",)
 
 # Launches of each kernel since the last reset_launches(). warp2d_v1_* are
 # K3's kernels reached through the K5 entry point (ops/resample.py::
@@ -63,21 +66,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: tuple = ()) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for name in SOURCES:
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16] / "libdis_kernels.so"
 
 
-def build() -> tuple[Path, float]:
+def build(flags: tuple = ()) -> tuple[Path, float]:
     """Compile the library unless it is already built: one ``nvcc -c`` per
-    source, all started together, then one link.
+    source, all started together, then one link; ``flags`` go to nvcc after
+    :data:`NVCC_FLAGS` (:data:`VARIANT_FLAGS` builds the variant library).
 
     Returns (path, seconds spent compiling; 0.0 when it was built before).
     The compiler's ``-Xptxas -v`` report lands in ``ptxas.log`` beside it."""
-    so = library_path()
+    so = library_path(flags)
     if so.exists():
         return so, 0.0
     so.parent.mkdir(parents=True, exist_ok=True)
@@ -87,7 +91,8 @@ def build() -> tuple[Path, float]:
     jobs = []
     for name in SOURCES:
         obj = so.parent / f"{Path(name).stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / name), "-o",
+               str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -124,6 +129,27 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def variant_library() -> ctypes.CDLL:
+    """The kernels built with :data:`VARIANT_FLAGS`: the entry points of
+    :func:`library` and the ``dis_ab_*`` ones, which also launch the
+    variants that lost their A/B comparison and run one part of K4's
+    backward alone, for timing (scripts/ab_torch_kernels.py,
+    chip_smoke.py). No wrapper calls it."""
+    so, _ = build(VARIANT_FLAGS)
+    return bind_variants(bind(ctypes.CDLL(str(so))))
+
+
+def bind_variants(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of the ``dis_ab_*`` entry points on lib."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dis_ab_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                      i32, ptr]
+    lib.dis_ab_warp2d_fwd.restype = i32
+    lib.dis_ab_warp2d_pairs_bwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+    lib.dis_ab_warp2d_pairs_bwd.restype = i32
+    return lib
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of the entry points of ``csrc/`` on lib."""
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
@@ -134,7 +160,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_xwarp_fwd.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32,
                                   ptr]
     lib.dis_xwarp_fwd.restype = i32
-    lib.dis_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                   ptr]
     lib.dis_warp2d_fwd.restype = i32
     lib.dis_census_sad_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                        f32, f32, f32, ptr]
@@ -147,8 +174,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
                                          i32, i32, i32, i32, i32, ptr]
     lib.dis_warp2d_pairs_fwd.restype = i32
-    lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
-                                         i32, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                         i32, i32, i32, i32, i32, i32, ptr]
     lib.dis_warp2d_pairs_bwd.restype = i32
     lib.dis_error_string.argtypes = [i32]
     lib.dis_error_string.restype = ctypes.c_char_p
@@ -308,13 +335,33 @@ def _warp2d_shapes(kernel: str, name: str, x: torch.Tensor,
     return M, H, W, C
 
 
+# K3's vector forward: C as a template parameter up to this many channels
+WARP2D_VEC_MAX_C = 8
+# the largest call the vector kernel's 32-bit flat pixel index takes
+WARP2D_VEC_MAX_PIXELS = 2 ** 31 - 1025
+
+
+def warp2d_fwd_path(C: int, pixels: int, flow_ptr: int,
+                    out_ptr: int) -> int:
+    """Which kernel K3's (and K5's) forward launches for C channels over
+    ``pixels`` = M*H*W pixels, as the pixels a thread: 0 is the first design
+    (any C), for C > WARP2D_VEC_MAX_C, more than WARP2D_VEC_MAX_PIXELS
+    pixels or a flow not 8-byte aligned. Else the vector kernel: two pixels
+    a thread for C = 1 where flow and out are 16-byte aligned, else one."""
+    if not 1 <= C <= WARP2D_VEC_MAX_C or pixels > WARP2D_VEC_MAX_PIXELS \
+            or flow_ptr % 8:
+        return 0
+    return 2 if C == 1 and flow_ptr % 16 == 0 and out_ptr % 16 == 0 else 1
+
+
 def _warp2d_fwd(kernel: str, img: torch.Tensor,
                 flow: torch.Tensor) -> torch.Tensor:
     M, H, W, C = _warp2d_shapes(kernel, "img", img, flow)
     out = torch.empty_like(img)
     if out.numel():
+        ppt = warp2d_fwd_path(C, M * H * W, flow.data_ptr(), out.data_ptr())
         _launch(kernel, library().dis_warp2d_fwd, img.data_ptr(),
-                flow.data_ptr(), out.data_ptr(), M, H, W, C,
+                flow.data_ptr(), out.data_ptr(), M, H, W, C, ppt,
                 device=img.device)
     return out
 
@@ -330,7 +377,9 @@ def _warp2d_bwd(kernel: str, flow: torch.Tensor,
 
 
 def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """K3: img (M, H, W, C), flow (M, H, W, 2) float32 -> (M, H, W, C)."""
+    """K3: img (M, H, W, C), flow (M, H, W, 2) float32 -> (M, H, W, C). The
+    vector kernel or the first design, as :func:`warp2d_fwd_path` chooses
+    by C, size and alignment."""
     return _warp2d_fwd("warp2d_fwd", img, flow)
 
 
@@ -357,7 +406,6 @@ _PAIR_TYPES = (torch.float32, torch.bfloat16)
 VEC_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}
 # the vectors of a pixel's channels that one thread of it owns: 2 was the
 # fastest of 1, 2, 4 and 8 at the DIS-MF shapes in both types
-# (scripts/ab_torch_kernels.py)
 PAIRS_VPT = 2
 
 
@@ -375,10 +423,24 @@ def pairs_fwd_vpt(C: int, dtype: torch.dtype, feat_ptr: int, flow_ptr: int,
     return PAIRS_VPT if C % (n * PAIRS_VPT) == 0 else 1
 
 
+def pairs_bwd_path(C: int, dtype: torch.dtype, g_ptr: int, flow_ptr: int,
+                   scratch_ptr: int) -> bool:
+    """Whether K4's backward launches the vector scatter (each thread one
+    4-channel vector of g of 8 consecutive pixels), else the scalar scatter
+    (one thread per element). The vector scatter needs C a multiple of 4
+    channels, at most 256 threads a pixel, g aligned to 4 channels (16
+    bytes in float32, 8 in bfloat16), the float32 scratch 16-byte aligned
+    and the flow 8-byte aligned."""
+    g_align = 4 * (2 if dtype == torch.bfloat16 else 4)
+    return not (C % 4 or C // 4 > 256 or g_ptr % g_align or scratch_ptr % 16
+                or flow_ptr % 8)
+
+
 def source_major_order(src) -> tuple:
     """The pairs grouped by source, sources ascending, in table order
-    within a source: the order in which K4's vector forward runs them, so
-    the pairs that read one source plane run while it is in L2."""
+    within a source: the order in which K4's vector kernels run them, so
+    the pairs that read (forward) or scatter into (backward) one source
+    plane run while it is in L2."""
     return tuple(sorted(range(len(src)), key=lambda m: src[m]))
 
 
@@ -448,18 +510,22 @@ def warp2d_pairs_bwd(flow: torch.Tensor, src_idx, g: torch.Tensor,
                      S: int) -> torch.Tensor:
     """K4 bwd: flow (M, H, W, 2) float32, g (M, H, W, C) float32 or
     bfloat16 -> grad wrt feat (S, H, W, C) in g's dtype, accumulated in
-    float32 over every pair of each source; the flow gets none. Float
-    atomics: the bits of a sum of three or more contributions vary from run
-    to run."""
+    float32 over every pair of each source; the flow gets none. The vector
+    scatter or the scalar one, as :func:`pairs_bwd_path` chooses by shape
+    and alignment. Float atomics: the bits of a sum of three or more
+    contributions vary from run to run."""
     M, H, W, C = _pairs_shapes("warp2d_pairs_bwd", "g", g, flow,
                                flow.shape[0] if flow.dim() == 4 else -1)
-    src = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)[0]
+    table = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)
     bf16 = g.dtype == torch.bfloat16
     scratch = torch.empty((S, H, W, C), dtype=torch.float32, device=g.device)
     grad = torch.empty_like(scratch, dtype=g.dtype) if bf16 else scratch
     if grad.numel():
+        vector = pairs_bwd_path(C, g.dtype, g.data_ptr(), flow.data_ptr(),
+                                scratch.data_ptr())
         _launch("warp2d_pairs_bwd", library().dis_warp2d_pairs_bwd,
-                flow.data_ptr(), src.data_ptr(), g.data_ptr(),
-                scratch.data_ptr(), grad.data_ptr() if bf16 else None, S, M,
-                H, W, C, int(bf16), device=g.device)
+                flow.data_ptr(), table[0].data_ptr(), table[1].data_ptr(),
+                g.data_ptr(), scratch.data_ptr(),
+                grad.data_ptr() if bf16 else None, S, M, H, W, C, int(bf16),
+                int(vector), device=g.device)
     return grad

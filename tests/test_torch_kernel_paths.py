@@ -1,7 +1,8 @@
 """What the port's kernel wrappers decide on the host, where no card is
-needed: which kernel K4's forward and K2's forward take for a shape, type
-and alignment, the source-major launch order of K4's pairs, and that a
-wrapper refuses a CPU tensor instead of computing anything itself."""
+needed: which kernel K4's forward and backward, K3's forward and K2's
+forward take for a shape, type and alignment, the source-major launch order
+of K4's pairs, and that a wrapper refuses a CPU tensor instead of computing
+anything itself."""
 import numpy as np
 import pytest
 import torch
@@ -39,6 +40,108 @@ def test_pairs_fwd_path_by_alignment(feat, flow, out, vector):
     (432, (8, 16, 32), 1), (432, (0, 16, 36), 1)])
 def test_xwarp_fwd_item_width(W, ptrs, vec):
     assert kernels.xwarp_fwd_vec(W, *ptrs) == vec
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+def test_warp2d_fwd_path_by_channels(C):
+    ppt = kernels.warp2d_fwd_path(C, 24 * 512 * 432, 256, 4096)
+    if C > kernels.WARP2D_VEC_MAX_C:
+        assert ppt == 0
+    else:
+        assert ppt == (2 if C == 1 else 1)
+
+
+@pytest.mark.parametrize("C,flow,out,want", [
+    # C = 1: two pixels a thread need flow and out 16-byte aligned
+    (1, 0, 0, 2), (1, 8, 0, 1), (1, 0, 8, 1), (1, 0, 4, 1), (1, 4, 0, 0),
+    # C >= 2: one pixel a thread, however out lies; the flow 8-byte aligned
+    (3, 8, 0, 1), (3, 0, 4, 1), (5, 24, 12, 1), (5, 2, 0, 0), (8, 4, 16, 0)])
+def test_warp2d_fwd_path_by_alignment(C, flow, out, want):
+    assert kernels.warp2d_fwd_path(C, 1000, flow, out) == want
+
+
+def test_warp2d_fwd_path_by_size():
+    big = kernels.WARP2D_VEC_MAX_PIXELS
+    assert kernels.warp2d_fwd_path(1, big, 0, 0) == 2
+    assert kernels.warp2d_fwd_path(1, big + 1, 0, 0) == 0
+    assert kernels.warp2d_fwd_path(5, big + 1, 0, 0) == 0
+
+
+@pytest.mark.parametrize("dtype,C,vector", [
+    (torch.bfloat16, 4, True), (torch.bfloat16, 8, True),
+    (torch.bfloat16, 12, True), (torch.bfloat16, 32, True),
+    (torch.float32, 4, True), (torch.float32, 8, True),
+    (torch.float32, 12, True), (torch.float32, 32, True),
+    (torch.float32, 1024, True),
+    # not a whole 4-channel vector, or more than 256 threads a pixel
+    (torch.bfloat16, 1, False), (torch.bfloat16, 5, False),
+    (torch.bfloat16, 6, False), (torch.float32, 1, False),
+    (torch.float32, 5, False), (torch.float32, 6, False),
+    (torch.float32, 1028, False), (torch.bfloat16, 2056, False)])
+def test_pairs_bwd_path_by_channels_and_type(dtype, C, vector):
+    assert kernels.pairs_bwd_path(C, dtype, 512, 1024, 2048) is vector
+
+
+@pytest.mark.parametrize("g,flow,scratch,f32,bf16", [
+    (0, 0, 0, True, True), (16, 8, 32, True, True),
+    # bfloat16 g needs 8 bytes (4 channels), float32 16
+    (8, 0, 0, False, True), (24, 8, 16, False, True),
+    (2, 0, 0, False, False), (4, 0, 0, False, False),
+    (0, 4, 0, False, False), (0, 0, 8, False, False)])
+def test_pairs_bwd_path_by_alignment(g, flow, scratch, f32, bf16):
+    for dtype, vector in ((torch.float32, f32), (torch.bfloat16, bf16)):
+        assert kernels.pairs_bwd_path(32, dtype, g, flow, scratch) is vector
+
+
+class _Recorder:
+    """Stands in for the library and the launch: records what a wrapper
+    would launch, with the CUDA checks switched off for CPU tensors."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(kernels, "_check", lambda *a, **k: None)
+        monkeypatch.setattr(kernels, "library", lambda: self)
+        monkeypatch.setattr(kernels, "_launch",
+                            lambda name, fn, *a, device: self.calls.append(
+                                (name, fn, a)))
+
+    def __getattr__(self, name):
+        return name
+
+
+def test_pairs_bwd_launches_in_the_cached_source_major_order(monkeypatch):
+    rec = _Recorder(monkeypatch)
+    src = _track_table(4, 2)
+    S, M, C = 8, len(src), 32
+    flow = torch.zeros(M, 5, 7, 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.zeros(M, 5, 7, C, dtype=dtype)
+        kernels.warp2d_pairs_bwd(flow, src, g, S)
+        name, fn, args = rec.calls[-1]
+        table = kernels._src_table("test", src, S, M, torch.device("cpu"))
+        assert (name, fn) == ("warp2d_pairs_bwd", "dis_warp2d_pairs_bwd")
+        # flow, src, order, g, scratch, grad, S, M, H, W, C, bf16, vector
+        assert args[1] == table[0].data_ptr()
+        assert args[2] == table[1].data_ptr()
+        assert tuple(table[1].tolist()) == kernels.source_major_order(src)
+        assert args[6:12] == (S, M, 5, 7, C, int(dtype == torch.bfloat16))
+        assert kernels.pairs_bwd_path(C, dtype, args[3], args[0], args[4])
+        assert args[12:] == (1,)
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 11])
+def test_warp2d_fwd_launches_the_chosen_path(monkeypatch, C):
+    rec = _Recorder(monkeypatch)
+    img, flow = torch.zeros(2, 9, 7, C), torch.zeros(2, 9, 7, 2)
+    for fn, name in ((kernels.warp2d_fwd, "warp2d_fwd"),
+                     (kernels.warp2d_v1_fwd, "warp2d_v1_fwd")):
+        fn(img, flow)
+        got, lib_fn, args = rec.calls[-1]
+        assert (got, lib_fn) == (name, "dis_warp2d_fwd")
+        # img, flow, out, M, H, W, C, ppt
+        assert args[3:7] == (2, 9, 7, C)
+        assert args[7:] == (kernels.warp2d_fwd_path(C, 2 * 9 * 7, args[1],
+                                                    args[2]),)
 
 
 def _track_table(tl: int, N: int) -> tuple:
@@ -103,4 +206,9 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.warp2d_pairs_fwd(feat, flow, (0, 1, 2, 0, 1, 2))
     with pytest.raises(ValueError, match="CUDA"):
+        kernels.warp2d_pairs_bwd(flow, (0, 1, 2, 0, 1, 2),
+                                 torch.zeros(6, 9, 7, 8), 3)
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.xwarp_fwd(torch.zeros(9, 8), torch.zeros(2, 9, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.warp2d_fwd(torch.zeros(2, 9, 7, 3), torch.zeros(2, 9, 7, 2))

@@ -72,13 +72,19 @@ def test_xwarp_kernel_matches_plain(cuda, N, H, W):
     torch.testing.assert_close(out_n, out, rtol=0, atol=0)
 
 
-def _offset_by_one(x):
-    """A contiguous copy of x whose data starts 4 bytes past an aligned
-    address (not 16-byte aligned)."""
-    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    y = flat[1:].view(x.shape)
+def _shifted(x, elems):
+    """A contiguous copy of x whose data starts ``elems`` elements past an
+    aligned address."""
+    flat = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    y = flat[elems:].view(x.shape)
     y.copy_(x)
     return y
+
+
+def _offset_by_one(x):
+    """A contiguous copy of x whose data starts one element past an aligned
+    address (not 16-byte aligned)."""
+    return _shifted(x, 1)
 
 
 def test_xwarp_kernel_unaligned_rows_take_one_pixel_items(cuda):
@@ -109,6 +115,62 @@ def test_warp2d_kernel_matches_plain(cuda, M, H, W, C, max_flow):
     torch.cuda.synchronize()
     assert kernels.launches["warp2d_fwd"] == before + 1
     torch.testing.assert_close(out, warp2d_plain(img, flow), rtol=0, atol=0)
+
+
+def _flow(shape, seed, device, max_flow):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.uniform(-max_flow, max_flow, shape + (2,))
+                            .astype(np.float32)).to(device)
+
+
+def _call(fn, *args):
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"CUDA error {err}"
+
+
+# K3's forward: the vector kernel at C = 1..8 and the first design at
+# C = 11, at W = 432, odd widths and pixel counts that are no multiple of
+# 2 (the pixels a thread at C = 1) or of 256 (a block); flows of up to
+# 30 px leave the image
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 11])
+@pytest.mark.parametrize("M,H,W", [(3, 16, 432), (2, 9, 7), (1, 5, 3),
+                                   (5, 37, 51)])
+def test_warp2d_fwd_paths_are_exact(cuda, M, H, W, C):
+    img = _randn((M, H, W, C), 80, cuda)
+    flow = _flow((M, H, W), 81, cuda, 30.0)
+    ref = warp2d_plain(img, flow)
+    ppt = kernels.warp2d_fwd_path(C, M * H * W, flow.data_ptr(),
+                                  ref.data_ptr())
+    assert (ppt > 0) == (C <= kernels.WARP2D_VEC_MAX_C)
+    before = kernels.launches["warp2d_fwd"]
+    out = flow_warp(img, flow)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_fwd"] == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # every path the C interface takes for this C, whatever the wrapper
+    # chooses
+    for ppt in [0] + ([1, 2] if C == 1 else [1] if C <= 8 else []):
+        o = torch.full_like(ref, float("nan"))
+        _call(kernels.library().dis_warp2d_fwd, img.data_ptr(),
+              flow.data_ptr(), o.data_ptr(), M, H, W, C, ppt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o, ref, rtol=0, atol=0, msg=f"ppt {ppt}")
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_warp2d_fwd_unaligned_flow_takes_the_first_design(cuda, C):
+    M, H, W = 2, 19, 45
+    img = _randn((M, H, W, C), 82, cuda)
+    flow = _flow((M, H, W), 83, cuda, 12.0)
+    ref = warp2d_plain(img, flow)
+    flow4 = _shifted(flow, 1)     # 4 bytes off: the first design
+    flow8 = _shifted(flow, 2)     # 8 bytes off: one pixel a thread
+    assert kernels.warp2d_fwd_path(C, M * H * W, flow4.data_ptr(), 0) == 0
+    assert kernels.warp2d_fwd_path(C, M * H * W, flow8.data_ptr(), 0) == 1
+    for f in (flow4, flow8):
+        out = kernels.warp2d_fwd(img, f)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -323,6 +385,66 @@ def test_warp2d_pairs_scalar_forward_is_exact(cuda, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, warp2d_pairs_plain(feat, flow, src),
                                    rtol=0, atol=0)
+
+
+def _assert_pairs_grad(grad, ref, dtype):
+    """K4 bwd's tolerance (test_warp2d_pairs_kernels_match_plain)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(grad.float(), ref.float(), rtol=2 ** -6,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("src", [(0, 2, 2, 0, 2, 0), (1, 1, 1, 0, 0, 1)])
+@pytest.mark.parametrize("dtype,C", VECTOR_CASES)
+def test_warp2d_pairs_vector_backward_within_tolerance(cuda, dtype, C, src):
+    _, flow, src, g = _pair_inputs(cuda, (3, 21, 19, C), src, dtype, 47)
+    S, M, H, W = 3, len(src), 21, 19
+    scratch = torch.empty((S, H, W, C), device=cuda)
+    assert kernels.pairs_bwd_path(C, dtype, g.data_ptr(), flow.data_ptr(),
+                                  scratch.data_ptr())
+    ref = warp2d_pairs_bwd_plain(flow, src, g, S)
+    before = kernels.launches["warp2d_pairs_bwd"]
+    grad = kernels.warp2d_pairs_bwd(flow, src, g, S)
+    torch.cuda.synchronize()
+    assert kernels.launches["warp2d_pairs_bwd"] == before + 1
+    _assert_pairs_grad(grad, ref, dtype)
+    # the vector scatter in source-major and in table order (the result
+    # does not depend on the order); 21x19 planes leave groups of 8 pixels
+    # that straddle rows and planes
+    table = kernels._src_table("test", src, S, M, cuda)
+    identity = torch.arange(M, dtype=torch.int32, device=cuda)
+    bf16 = dtype == torch.bfloat16
+    for order in (table[1], identity):
+        out = torch.full((S, H, W, C), float("nan"), dtype=dtype,
+                         device=cuda)
+        scratch.fill_(float("nan"))
+        _call(kernels.library().dis_warp2d_pairs_bwd, flow.data_ptr(),
+              table[0].data_ptr(), order.data_ptr(), g.data_ptr(),
+              scratch.data_ptr(), out.data_ptr() if bf16 else None, S, M, H,
+              W, C, int(bf16), 1)
+        torch.cuda.synchronize()
+        _assert_pairs_grad(out if bf16 else scratch, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp2d_pairs_scalar_backward_within_tolerance(cuda, dtype):
+    """C = 1 and 5, and 32 channels of g that start off a 4-channel
+    boundary, take the scalar scatter."""
+    cases = [((3, 9, 7, 1), None), ((3, 37, 50, 5), None),
+             ((3, 21, 19, 32), _offset_by_one)]
+    for shape, move in cases:
+        _, flow, src, g = _pair_inputs(cuda, shape, (2, 0, 1, 2, 0, 1),
+                                       dtype, 48)
+        if move is not None:
+            g = move(g)
+        assert not kernels.pairs_bwd_path(shape[-1], dtype, g.data_ptr(),
+                                          flow.data_ptr(), 0)
+        grad = kernels.warp2d_pairs_bwd(flow, src, g, shape[0])
+        torch.cuda.synchronize()
+        _assert_pairs_grad(grad, warp2d_pairs_bwd_plain(flow, src, g,
+                                                        shape[0]), dtype)
 
 
 def test_warp2d_pairs_bwd_matches_finite_differences(cuda):
