@@ -24,7 +24,9 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            and 3 of the SF loss, C = 5 of the MF loss and of FuseNet's
            geometry warp), with the path it takes; the kernels K4's
            forward and backward take (vector or scalar), and K4's backward
-           split into its zeroing, scatter and cast, each timed alone;
+           split into its zeroing, scatter and cast, each timed alone; K1
+           and K1 bwd also at the train shape on an input with exact ties,
+           each called twice for the same bits;
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
            ragged 13-image request (8 + 5), maps/s;
 5. eval    the DIS-SF evaluation step on a (tl=4, bs=2) synthetic track batch
@@ -99,13 +101,14 @@ SFU_PER_S = 132 * 16 * 1.98e9
 
 # Tolerances of the kernels against their plain versions on the card.
 TOL = {
-    # rsqrtf (<= 2 ulp) against torch.rsqrt, summed over 81 taps of |dh| <= 1
+    # the same hardware rsqrt as torch.rsqrt; |h(a) - h(b)| as |a ra - b rb|
+    # / 2, each pair's term summed into both pixels in another order
     "census_sad_fwd": 1e-5,
     # round-to-nearest intrinsics in the plain version's order of operations
     "xwarp_fwd": 0.0,
     "warp2d_fwd": 0.0,
-    # the same signs as the plain version; each pixel sums 162 terms of
-    # |.| <= 0.71 |g| / 81 in another order, dh from rsqrtf (g ~ N(0, 1) here)
+    # the same signs as the plain version; each pixel sums up to 160 terms
+    # of |.| <= 0.71 |g| / 81 in another order (g ~ N(0, 1) here)
     "census_sad_bwd": 1e-5,
     "xwarp_bwd": 0.0,
     # float atomics: sums of 3+ contributions in a varying order
@@ -218,6 +221,39 @@ def census_pairs(shape, block_size: int = 9) -> int:
                    if (dy, dx) > (0, 0))
 
 
+def census_ties(es, ta, g, results) -> None:
+    """K1 and K1 bwd against their plain versions where many pairs tie
+    exactly: es and ta rounded to a 1/4 grid, a flat region in image 0 and
+    es == ta on the lower right third; each kernel called twice must give
+    the same bits (no atomics). The kernels line keeps the larger error."""
+    import torch
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.ops.census import (census_sad_bwd_plain,
+                                                   census_sad_plain)
+    Hh, Ww = es.shape[1:]
+    es_q, ta_q = torch.round(es * 4) / 4, torch.round(ta * 4) / 4
+    es_q[0, :Hh // 2, :Ww // 2] = 0.25
+    ta_q[0, :Hh // 2, :Ww // 2] = -0.5
+    es_q[:, 2 * Hh // 3:, 2 * Ww // 3:] = ta_q[:, 2 * Hh // 3:, 2 * Ww // 3:]
+    for name, call, plain in (
+            ("census_sad_fwd", lambda: kernels.census_sad_fwd(es_q, ta_q),
+             lambda: census_sad_plain(es_q, ta_q)),
+            ("census_sad_bwd", lambda: kernels.census_sad_bwd(es_q, ta_q, g),
+             lambda: census_sad_bwd_plain(es_q, ta_q, g))):
+        out, again = call(), call()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        same = bool(torch.equal(out, again))
+        print(f"[kernel] {name} {tuple(es.shape)} with exact ties: "
+              f"max|kernel-plain| {err:.3g} (tol {TOL[name]:g}); two calls "
+              f"bitwise equal: {same}")
+        check(err <= TOL[name] and bool(torch.isfinite(out).all()),
+              f"{name} disagrees with its plain version on ties: {err}")
+        check(same, f"{name} gave other bits on a second call")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
 def grid_of(x, y):
     """Pixel coordinates -> grid_sample's normalized grid, align_corners."""
     import torch
@@ -231,7 +267,7 @@ T_START = time.perf_counter()
 def main() -> None:
     import torch
     import torch.nn.functional as F
-    from depthinspace_tpu_torch.device import require_cuda
+    from depthinspace_tpu_torch.device import require_cuda, set_full_f32
 
     # -- 1. probe ---------------------------------------------------------
     dev = require_cuda()
@@ -244,8 +280,7 @@ def main() -> None:
     print(f"[probe] {card}; torch {torch.__version__}; cuda "
           f"{torch.version.cuda}; nvcc: {nvcc}; python {sys.version.split()[0]}")
     print(smi)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_full_f32()
 
     # -- 2. build ---------------------------------------------------------
     # the library of the main paths, and beside it (in parallel) the one
@@ -459,6 +494,7 @@ def main() -> None:
            None, bound_ms(4 * 4 * px_t, flops=16 * pairs_t,
                           rsqrts=2 * pairs_t),
            f"es,ta,g {tuple(es_t.shape)}")
+    census_ties(es_t, ta_t, g_t, results)
     g_t4 = g_t[:, None]
     record("xwarp_bwd", bwd(lambda d: warp_pattern(pattern, d), disp_t, g_t),
            xwarp_bwd_plain(pattern, disp_t, g_t),

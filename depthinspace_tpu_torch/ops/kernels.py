@@ -132,9 +132,9 @@ def library() -> ctypes.CDLL:
 def variant_library() -> ctypes.CDLL:
     """The kernels built with :data:`VARIANT_FLAGS`: the entry points of
     :func:`library` and the ``dis_ab_*`` ones, which also launch the
-    variants that lost their A/B comparison and run one part of K4's
-    backward alone, for timing (scripts/ab_torch_kernels.py,
-    chip_smoke.py). No wrapper calls it."""
+    variants that lost their A/B comparison, run one part of K4's
+    backward alone, or run K1 with the rows a warp writes given, for timing
+    (scripts/ab_torch_kernels.py, chip_smoke.py). No wrapper calls it."""
     so, _ = build(VARIANT_FLAGS)
     return bind_variants(bind(ctypes.CDLL(str(so))))
 
@@ -147,6 +147,13 @@ def bind_variants(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_ab_warp2d_fwd.restype = i32
     lib.dis_ab_warp2d_pairs_bwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.dis_ab_warp2d_pairs_bwd.restype = i32
+    f32 = ctypes.c_float
+    lib.dis_ab_census_sad_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
+                                          i32, ptr]
+    lib.dis_ab_census_sad_fwd.restype = i32
+    lib.dis_ab_census_sad_bwd.argtypes = [ptr] * 4 + [i32] * 3 + [f32] * 3 \
+        + [i32, ptr]
+    lib.dis_ab_census_sad_bwd.restype = i32
     return lib
 
 
@@ -217,8 +224,12 @@ def _launch(kernel: str, fn, *args, device: torch.device) -> None:
     launches[kernel] += 1
 
 
+# the kernels' rsqrt flushes denormals: its input d^2 + eps must be normal
+FLT_MIN = 2.0 ** -126
+
+
 def _census_shapes(kernel: str, es: torch.Tensor, ta: torch.Tensor,
-                   block_size: int) -> tuple[int, int, int]:
+                   block_size: int, eps: float) -> tuple[int, int, int]:
     _check("es", es, 3)
     _check("ta", ta, 3)
     _same_device(kernel, es, ta)
@@ -227,6 +238,9 @@ def _census_shapes(kernel: str, es: torch.Tensor, ta: torch.Tensor,
                          f"{tuple(ta.shape)} differ")
     if block_size != 9:
         raise ValueError(f"{kernel}: the kernel is built for 9x9 blocks")
+    if not eps >= FLT_MIN:
+        raise ValueError(f"{kernel}: eps must be at least {FLT_MIN:g}, "
+                         f"got {eps}")
     N, H, W = es.shape
     _grid_fits(kernel, N, 1)
     return N, H, W
@@ -234,8 +248,9 @@ def _census_shapes(kernel: str, es: torch.Tensor, ta: torch.Tensor,
 
 def census_sad_fwd(es: torch.Tensor, ta: torch.Tensor,
                    block_size: int = 9, eps: float = 0.5) -> torch.Tensor:
-    """K1: es, ta (N, H, W) float32 -> (N, H, W)."""
-    N, H, W = _census_shapes("census_sad_fwd", es, ta, block_size)
+    """K1: es, ta (N, H, W) float32 -> (N, H, W); each unordered pixel
+    pair evaluated once, deterministic (no atomics)."""
+    N, H, W = _census_shapes("census_sad_fwd", es, ta, block_size, eps)
     out = torch.empty_like(es)
     if out.numel():
         _launch("census_sad_fwd", library().dis_census_sad_fwd, es.data_ptr(),
@@ -246,8 +261,10 @@ def census_sad_fwd(es: torch.Tensor, ta: torch.Tensor,
 
 def census_sad_bwd(es: torch.Tensor, ta: torch.Tensor, g: torch.Tensor,
                    block_size: int = 9, eps: float = 0.5) -> torch.Tensor:
-    """K1 bwd: es, ta, g (N, H, W) float32 -> d<g, census_sad(es, ta)>/d es."""
-    N, H, W = _census_shapes("census_sad_bwd", es, ta, block_size)
+    """K1 bwd: es, ta, g (N, H, W) float32 -> d<g, census_sad(es, ta)>/d es;
+    each pixel pair once, deterministic (no atomics: the same bits on every
+    call)."""
+    N, H, W = _census_shapes("census_sad_bwd", es, ta, block_size, eps)
     _check("g", g, 3)
     _same_device("census_sad_bwd", es, g)
     if g.shape != es.shape:

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""K3/K5 forward and K4 backward of the PyTorch port against an older
-version of their CUDA sources, on one NVIDIA card, measured in turns.
+"""K1 forward and backward, K3/K5 forward and K4 backward of the PyTorch
+port against an older version of their CUDA sources, on one NVIDIA card,
+measured in turns.
 
     mkdir -p build/old && git archive <commit> depthinspace_tpu_torch/csrc \\
         | tar -x -C build/old
-    python3 scripts/ab_torch_kernels.py \\
+    python3 scripts/ab_torch_kernels.py --kernels k1 \\
         --old build/old/depthinspace_tpu_torch/csrc --out build/ab.json
 
 Builds this checkout's kernels (``depthinspace_tpu_torch/csrc``, with
 ``kernels.VARIANT_FLAGS``: the variants that lost, and the ``dis_ab_*``
-entry points that reach them) and the older ``warp2d.cu`` and
-``warp2d_pairs.cu`` (the interface they had before K3's forward took a path
-and K4's backward an order table and a path) with nvcc into one library
-under ``build/ab/``. Every
-variant is checked against the plain version before any time is printed:
-K3's forward bit for bit, K4's backward within chip_smoke.py's tolerance
-(float atomics). Then each variant is timed at the main paths' shapes,
-first in the listed order and then in reverse (old, new, ..., new, old),
-each time as ``chip_smoke.cuda_ms`` times a kernel (median of 25, each call
-queued behind a device sleep):
+entry points that reach them) and the older sources of the chosen kernels
+(``--kernels``, a comma list of k1, k3, k4) with nvcc into one library under
+``build/ab/``, the older entry points renamed ``dis_old_*``: k1 takes the
+older ``census_sad.cu`` (any version with the forward and the backward:
+their C interface has not changed), k3 and k4 the older ``warp2d.cu`` and
+``warp2d_pairs.cu`` with the interface they had at commit 8658ce4, before
+K3's forward took a path and K4's backward an order table and a path. Every variant is checked against
+the plain version before any time is printed: K1 and K1 bwd within
+chip_smoke.py's 1e-5, K3's forward bit for bit, K4's backward within
+chip_smoke.py's tolerance (float atomics). Then each variant is timed at the
+main paths' shapes, first in the listed order and then in reverse (old,
+new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
+(median of 25, each call queued behind a device sleep):
 
+- K1 and K1 bwd at the SF eval step's (8, 512, 432) and the SF train
+  step's (32, 512, 432): the old kernel and this checkout's, as its entry
+  point chooses the rows a warp writes and with 16, 32 and 64 rows;
 - K3's forward on the rigid flows of synthetic batches: the SF geometric
   loss's C = 1 and C = 3 at (24, 512, 432), the MF loss's (and K5's) C = 1
   and C = 5 at (48, 512, 432), FuseNet's geometry warp C = 5 at
@@ -34,8 +41,8 @@ queued behind a device sleep):
   alone.
 
 The yardstick (F.grid_sample; for K4 grid_sample's backward on the gathered
-stack) is timed once. Prints one line a measurement, the card's name and
-power limit, and last one JSON object (also written to ``--out``).
+stack) is timed once; K1 has none. Prints one line a measurement, the card's
+name and power limit, and last one JSON object (also written to ``--out``).
 """
 
 from __future__ import annotations
@@ -57,22 +64,30 @@ import chip_smoke  # noqa: E402  (cuda_ms, grid_of, bound_ms, smi_name_power)
 
 H, W = 512, 432
 TL = 4
-OLD_SOURCES = ("warp2d.cu", "warp2d_pairs.cu")
-OLD_ENTRIES = ("dis_warp2d_fwd", "dis_warp2d_bwd", "dis_warp2d_pairs_fwd",
-               "dis_warp2d_pairs_bwd")
+# the older source each section builds, and its entry points (renamed
+# dis_old_*)
+OLD_SOURCES = {
+    "k1": ("census_sad.cu", ("dis_census_sad_fwd", "dis_census_sad_bwd",
+                             "dis_error_string")),
+    "k3": ("warp2d.cu", ("dis_warp2d_fwd", "dis_warp2d_bwd")),
+    "k4": ("warp2d_pairs.cu", ("dis_warp2d_pairs_fwd",
+                               "dis_warp2d_pairs_bwd")),
+}
 # dis_ab_warp2d_pairs_bwd's parts: each alone, or all (the whole call)
 PARTS = {"zeroing": 1, "scatter": 2, "cast": 4}
 ALL = 7
 
 
-def build_ab(old_csrc: Path, kernels) -> ctypes.CDLL:
-    """One library of this checkout's kernels and the older warp2d.cu and
-    warp2d_pairs.cu, whose entry points are renamed dis_old_* (one library,
+def build_ab(old_csrc: Path, kernels, sections) -> ctypes.CDLL:
+    """One library of this checkout's kernels and the older sources of the
+    chosen sections, whose entry points are renamed dis_old_* (one library,
     so no entry point or kernel is defined twice in the process)."""
-    renames = [f"-D{n}=dis_old_{n[4:]}" for n in OLD_ENTRIES]
     jobs = [(kernels.CSRC / n, n, list(kernels.VARIANT_FLAGS))
             for n in kernels.SOURCES]
-    jobs += [(old_csrc / n, f"old_{n}", renames) for n in OLD_SOURCES]
+    for sec in sections:
+        name, entries = OLD_SOURCES[sec]
+        jobs.append((old_csrc / name, f"old_{name}",
+                     [f"-D{e}=dis_old_{e[4:]}" for e in entries]))
     digest = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
     for path, name, extra in jobs:
         digest.update(name.encode() + " ".join(extra).encode())
@@ -94,10 +109,18 @@ def build_ab(old_csrc: Path, kernels) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed: {proc.args}\n{out}")
         subprocess.run([nvcc, "-shared", "-o", str(so), *objs], check=True)
     lib = kernels.bind_variants(kernels.bind(ctypes.CDLL(str(so))))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dis_old_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.dis_old_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
-                                             i32, i32, i32, i32, i32, ptr]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if "k1" in sections:
+        lib.dis_old_census_sad_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                               f32, ptr]
+        lib.dis_old_census_sad_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                               i32, f32, f32, f32, ptr]
+    if "k3" in sections:
+        lib.dis_old_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                           ptr]
+    if "k4" in sections:
+        lib.dis_old_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
+                                                 i32, i32, i32, i32, i32, ptr]
     return lib
 
 
@@ -135,6 +158,67 @@ def in_turns(variants: dict) -> dict:
     for n in names + names[::-1]:
         times[n].append(chip_smoke.cuda_ms(variants[n]))
     return times
+
+
+def k1(lib, dev) -> dict:
+    """K1 and K1 bwd, old and new, at the SF eval and train shapes."""
+    import torch
+    from depthinspace_tpu_torch.ops.census import (census_sad_bwd_plain,
+                                                   census_sad_plain)
+
+    eps, tol = 0.5, chip_smoke.TOL["census_sad_fwd"]
+    result = {}
+    for n in (8, 32):
+        rng = np.random.RandomState(n)
+        es, ta, g = (torch.as_tensor(rng.randn(n, H, W).astype(np.float32),
+                                     device=dev) for _ in range(3))
+        ptrs = (es.data_ptr(), ta.data_ptr())
+        pairs = chip_smoke.census_pairs(es.shape)
+        for kind in ("fwd", "bwd"):
+            key = f"census_sad_{kind} ({n}, {H}, {W})"
+            out = torch.empty_like(es)
+            if kind == "fwd":
+                ref = census_sad_plain(es, ta)
+                args = (*ptrs, out.data_ptr(), n, H, W, eps)
+                bound = chip_smoke.bound_ms(3 * 4 * es.numel(),
+                                            flops=12 * pairs,
+                                            rsqrts=2 * pairs)
+            else:
+                ref = census_sad_bwd_plain(es, ta, g)
+                args = (*ptrs, g.data_ptr(), out.data_ptr(), n, H, W, eps,
+                        0.5 * eps, 1.0 / 81)
+                bound = chip_smoke.bound_ms(4 * 4 * es.numel(),
+                                            flops=16 * pairs,
+                                            rsqrts=2 * pairs)
+            variants = {
+                "old": lambda f=getattr(lib, f"dis_old_census_sad_{kind}"):
+                    call(f, *args),
+                "new": lambda f=getattr(lib, f"dis_census_sad_{kind}"):
+                    call(f, *args)}
+            # the rows a warp writes (the new entry point chooses 32 at
+            # N = 8 and 64 at N = 32)
+            for rows in (16, 32, 64):
+                variants[f"new, {rows} rows"] = (
+                    lambda f=getattr(lib, f"dis_ab_census_sad_{kind}"),
+                    rows=rows: call(f, *args, rows))
+            errs = {}
+            for name, f in variants.items():
+                out.fill_(float("nan"))
+                f()
+                torch.cuda.synchronize()
+                errs[name] = float((out - ref).abs().max())
+                if not errs[name] <= tol:
+                    raise RuntimeError(f"{key} {name} differs from the plain "
+                                       f"version: {errs[name]}")
+            times = in_turns(variants)
+            result[key] = dict(times, max_abs_err=errs, bound_ms=bound[0],
+                               bound_by=bound[1])
+            for name, t in times.items():
+                print(f"[ab] {key}: {name} {[round(x, 4) for x in t]} ms "
+                      f"(max|kernel-plain| {errs[name]:.3g})")
+            print(f"[ab] {key}: bound {bound[0]:.4f} ms ({bound[1]})")
+        del es, ta, g, out, ref
+    return result
 
 
 def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
@@ -300,9 +384,15 @@ def k4_backward(lib, kernels, dev, mf_flow) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True,
-                    help="directory with the older warp2d.cu, warp2d_pairs.cu")
+                    help="directory with the older sources of the chosen "
+                         "kernels")
+    ap.add_argument("--kernels", default="k1,k3,k4",
+                    help="comma list of k1, k3, k4 (default: all)")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args()
+    sections = args.kernels.split(",")
+    if not sections or set(sections) - set(OLD_SOURCES):
+        ap.error(f"--kernels: a comma list of {', '.join(OLD_SOURCES)}")
 
     import torch
     from depthinspace_tpu_torch.data import make_settings, make_track_batch
@@ -312,16 +402,21 @@ def main() -> None:
     dev = require_cuda()
     smi = chip_smoke.smi_name_power()
     print(smi)
-    lib = build_ab(args.old, kernels)
-    settings = make_settings(H, W)
-    sf_flow = torch.as_tensor(make_track_batch(settings, tl=TL, bs=2,
-                                               seed=0).flow, device=dev)
-    mf_flow = torch.as_tensor(make_track_batch(settings, tl=TL, bs=4, seed=20,
-                                               primary_noise=0.5).flow,
-                              device=dev)
+    lib = build_ab(args.old, kernels, sections)
     result = {"card": smi}
-    result.update(k3_forward(lib, kernels, dev, sf_flow, mf_flow))
-    result.update(k4_backward(lib, kernels, dev, mf_flow))
+    if "k1" in sections:
+        result.update(k1(lib, dev))
+    if "k3" in sections or "k4" in sections:
+        settings = make_settings(H, W)
+        mf_flow = torch.as_tensor(make_track_batch(
+            settings, tl=TL, bs=4, seed=20, primary_noise=0.5).flow,
+            device=dev)
+    if "k3" in sections:
+        sf_flow = torch.as_tensor(make_track_batch(settings, tl=TL, bs=2,
+                                                   seed=0).flow, device=dev)
+        result.update(k3_forward(lib, kernels, dev, sf_flow, mf_flow))
+    if "k4" in sections:
+        result.update(k4_backward(lib, kernels, dev, mf_flow))
     print(smi)
     line = json.dumps(result)
     if args.out:

@@ -181,6 +181,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernels.census_sad_fwd(x.transpose(1, 2), x.transpose(1, 2))
     with pytest.raises(ValueError, match="9x9"):
         kernels.census_sad_fwd(x, x, block_size=7)
+    with pytest.raises(ValueError, match="eps"):
+        kernels.census_sad_bwd(x, x, x, eps=0.0)
     with pytest.raises(ValueError):
         kernels.xwarp_fwd(x[0, :8], x)
     with pytest.raises(ValueError):
@@ -216,9 +218,62 @@ def test_census_bwd_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert kernels.launches["census_sad_bwd"] == before + 1
     # the signs agree (round-to-nearest h in the plain order); dh uses
-    # rsqrtf and the 162 terms are summed in another order
+    # the hardware rsqrt and each pair's terms are summed in another order
     torch.testing.assert_close(grad, census_sad_bwd_plain(es, ta, g),
                                rtol=0, atol=1e-5)
+
+
+def _census_ties(shape, kind, device):
+    """es, ta, g with exact ties: values on a 1/4 grid, a flat region, or es
+    == ta on a patch (as tests/test_torch_census_pairs.py makes them)."""
+    rng = np.random.RandomState(40)
+    es, ta, g = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    N, H, W = shape
+    if kind == "quarter grid":
+        es, ta = np.round(es * 4) / 4, np.round(ta * 4) / 4
+    elif kind == "flat region":
+        es[:, :H // 2, :W // 2] = 0.25
+        ta[:, :H // 2, :W // 2] = -0.5
+    else:
+        es[:, H // 3:, W // 3:] = ta[:, H // 3:, W // 3:]
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(device)
+                 for x in (es, ta, g))
+
+
+# border-heavy; bands of 56 columns whose staged columns avoid the border
+# beside the first and last band, row bands split mid-image; a last band
+# one column wide (W = 433); the eval and train shapes
+TIE_SHAPES = [(2, 9, 7), (3, 37, 50), (2, 100, 250), (1, 40, 433),
+              (8, 512, 432), (32, 512, 432)]
+
+
+@pytest.mark.parametrize("kind", ["quarter grid", "flat region",
+                                  "es == ta patch"])
+@pytest.mark.parametrize("shape", TIE_SHAPES)
+def test_census_kernels_match_plain_on_ties(cuda, shape, kind):
+    """K1 and K1 bwd against their plain versions where many pairs tie
+    exactly (h(a) == h(b)): a sign taken otherwise than the plain version
+    takes it would cost ~1e-2 at a pixel."""
+    es, ta, g = _census_ties(shape, kind, cuda)
+    out = kernels.census_sad_fwd(es, ta)
+    grad = kernels.census_sad_bwd(es, ta, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, census_sad_plain(es, ta), rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(grad, census_sad_bwd_plain(es, ta, g),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 50), (1, 40, 433),
+                                   (32, 512, 432)])
+def test_census_kernels_are_deterministic(cuda, shape):
+    """No atomics: two calls on the same input give the same bits."""
+    es, ta, g = (_randn(shape, s, cuda) for s in (13, 14, 15))
+    out = [kernels.census_sad_fwd(es, ta) for _ in range(2)]
+    grad = [kernels.census_sad_bwd(es, ta, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    assert torch.equal(grad[0], grad[1])
 
 
 def _disp(shape, seed, device):

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -117,8 +118,12 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     then FuseNet, one DIS-MF train step and one TrackDisparityServer
     request."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, pkgutil, sys, time
         from pathlib import Path
+        T0 = time.perf_counter()
+        def mark(phase):
+            print(f"{time.perf_counter() - T0:7.1f} s  {phase}",
+                  file=sys.stderr, flush=True)
         BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "h5py", "cv2",
                    "matplotlib", "depthinspace_tpu")
         for name in BLOCKED:
@@ -127,6 +132,7 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         import depthinspace_tpu_torch as pkg
         for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(mod.name)
+        mark("imports")
         from depthinspace_tpu_torch.config import RunConfig
         from depthinspace_tpu_torch.data import (SyntheticSource,
                                                  batch_to_torch, make_settings,
@@ -145,12 +151,15 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         ctx = make_loss_context(s, 4, device="cpu")
         _, comps = make_sf_eval_step(net, ctx)(batch_to_torch(b, "cpu"))
         assert comps.shape == (6,) and bool(torch.isfinite(comps).all())
+        mark("eval step")
         out = DisparityServer(net, imsize=(32, 24), max_batch=2,
                               device="cpu").infer(b.im[0])
         assert out.shape == (1, 32, 24)
+        mark("server")
         state = TrainState.create(net, device="cpu")
         comps = make_sf_train_step(net, ctx, state)(batch_to_torch(b, "cpu"))
         assert state.step == 1 and bool(torch.isfinite(comps).all())
+        mark("train step")
         cfg = RunConfig(data_dir=Path("."), output_dir=Path(sys.argv[1]),
                         epochs=1, train_batch_size=1, max_train_iter=1,
                         test_batch_size=1, num_workers=1)
@@ -160,6 +169,7 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         SingleFrameWorker(cfg, device="cpu", source=src).do("resume")
         exp = Path(sys.argv[1]) / "single_frame"
         assert (exp / "net_0001.params").exists()
+        mark("worker retrain + resume")
         from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
         from depthinspace_tpu_torch.serve import TrackDisparityServer
         from depthinspace_tpu_torch.train import make_mf_train_step
@@ -172,18 +182,32 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         comps = make_mf_train_step(mf, ctx, mstate)(batch_to_torch(mb, "cpu"))
         assert mstate.step == 1 and comps.shape == (4,)
         assert bool(torch.isfinite(comps).all())
+        mark("MF train step")
         srv = TrackDisparityServer(net, mf, imsize=(32, 24), K=s.K,
                                    device="cpu")
         mv = lambda a: a.swapaxes(0, 1)
         out = srv.infer(mv(mb.im), mv(mb.ambient), mv(mb.R), mv(mb.t),
                         mb.flow.transpose(2, 0, 1, 3, 4, 5))
         assert out.shape == (1, 4, 32, 24)
+        mark("track server")
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
-                         cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=300)
+    # one intra-op thread: the test runs beside other test processes, each
+    # with torch's default of one spinning thread per core; in a 6-worker
+    # run of tests/ on 8 cores that took this process from 15 s (alone) to
+    # 82 s, and to 26 s with one thread (the shapes are tiny: one thread is
+    # as fast alone)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                             cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=300)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr.decode() if isinstance(e.stderr, bytes) else e.stderr
+        pytest.fail(f"timed out after {time.perf_counter() - t0:.1f} s; "
+                    f"phases so far (stderr):\n{err}")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
