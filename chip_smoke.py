@@ -19,7 +19,10 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            kernel, of the plain version and of the one PyTorch call that
            computes the same function where there is one (F.grid_sample and
            its backward; for K4 also index_select + grid_sample, since K4
-           gathers its sources itself), and the kernel's bound; K2 timed at
+           gathers its sources itself), and the kernel's bound; K3's
+           backward (the strip kernel) at the SF and MF train steps' calls
+           on their rigid flows and on a random one, K5's at the MF call,
+           each called twice for its run-to-run difference; K2 timed at
            both shapes; K3's forward at each call of the main paths (C = 1
            and 3 of the SF loss, C = 5 of the MF loss and of FuseNet's
            geometry warp), with the path it takes; the kernels K4's
@@ -64,7 +67,14 @@ path; every kernel but K5 must run on it):
 13. mf parity  the MF eval step (bs = 1, f32) and one MF train step (bs = 1,
                f32) on the card and on the CPU from the same weights;
 14. mf worker  MultiFrameWorker on in-memory samples: one epoch, a resume at
-               epoch 1, a retest of epoch 0.
+               epoch 1, a retest of epoch 0;
+15. wire cache a dataset directory that holds only a wire cache of 8
+               synthetic samples, written with numpy: the SF worker
+               (rigid flow) and the MF worker (flow from the primary) train
+               3 steps and test from it, then retest epoch 0;
+16. drift      the SF and the MF train step 5 times from the same state and
+               batch, twice: the largest relative differences of the losses
+               and the weights (float atomics, cuDNN).
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -512,20 +522,60 @@ def main() -> None:
                   warp2d_plain(img_t, f0_t),
                   f"C={img.shape[-1]} {tuple(img_t.shape)}")
     del img_t
-    g_k3 = torch.as_tensor(rng_b.randn(f0_t.shape[0], H, W, 1).astype(
+    def k3_bwd_call(name, warp, kernel, flow, label):
+        """K3's (or K5's) backward, C = 1, on one call of a main path: the
+        gradient through the autograd path against the plain version,
+        the path the wrapper takes (the strip kernel), the kernel's, the
+        plain version's and grid_sample backward's times and the bound; a
+        second kernel call on the same input gives its run-to-run
+        difference (float atomics). One printed line."""
+        M_ = flow.shape[0]
+        g = torch.as_tensor(rng_b.randn(M_, H, W, 1).astype(np.float32),
+                            device=dev)
+        img0 = torch.zeros_like(g)
+        out = bwd(lambda x: warp(x, flow), img0, g)
+        ref = warp2d_bwd_plain(flow, g)
+        again = kernel(flow, g)
+        torch.cuda.synchronize()
+        path = kernels.warp2d_bwd_path(1, H, W, flow.data_ptr())
+        grid = grid_of(flow[..., 0] + u, flow[..., 1] + v)
+        g_n, img_n = g.permute(0, 3, 1, 2), img0.permute(0, 3, 1, 2)
+        # each input read once (flow, g), the output written once
+        b = bound_ms(4 * M_ * H * W * (2 + 1 + 1))
+        r = dict(max_abs_err=float((out - ref).abs().max()),
+                 ms=cuda_ms(lambda: kernel(flow, g)),
+                 plain_ms=cuda_ms(lambda: warp2d_bwd_plain(flow, g), reps=5),
+                 library_ms=cuda_ms(lambda: gs_bwd(g_n, img_n, grid, 0, 0,
+                                                   True, [True, False])),
+                 bound_ms=b[0], bound_by=b[1],
+                 path="strip kernel" if path else "first design",
+                 run_to_run=float((again - out).abs().max()))
+        print(f"[kernel] {name} flow {tuple(flow.shape)} g {tuple(g.shape)} "
+              f"({label}; {r['path']}): max|kernel-plain| "
+              f"{r['max_abs_err']:.3g} (tol {TOL[name]:g}); two calls differ "
+              f"by {r['run_to_run']:.3g}; kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+              f"bound {b[0]:.4f} ms ({b[1]}; {b[0] / r['ms']:.0%} of it)")
+        check(r["max_abs_err"] <= TOL[name] and bool(torch.isfinite(
+            out).all()), f"{name} {label} disagrees with its plain version: "
+              f"{r['max_abs_err']}")
+        check(path == 1, f"{name} {label} did not take the strip kernel")
+        return r
+
+    # the SF train step's call (12 directions x 8 tracks) on its rigid
+    # flow, then on a random flow of +-4 px; the MF step's beside K5 below
+    f_rand = torch.as_tensor(rng_b.uniform(-4.0, 4.0, f0_t.shape).astype(
         np.float32), device=dev)
-    img_k3 = torch.zeros_like(g_k3)
-    grid_k3 = grid_of(f0_t[..., 0] + u, f0_t[..., 1] + v)
-    g_k3n, img_k3n = g_k3.permute(0, 3, 1, 2), img_k3.permute(0, 3, 1, 2)
-    m3t = f0_t.shape[0] * H * W
-    record("warp2d_bwd", bwd(lambda x: flow_warp(x, f0_t), img_k3, g_k3),
-           warp2d_bwd_plain(f0_t, g_k3),
-           cuda_ms(lambda: kernels.warp2d_bwd(f0_t, g_k3)),
-           cuda_ms(lambda: warp2d_bwd_plain(f0_t, g_k3), reps=5),
-           cuda_ms(lambda: gs_bwd(g_k3n, img_k3n, grid_k3, 0, 0, True,
-                                  [True, False])),
-           bound_ms(4 * m3t * (2 + 1 + 1)),
-           f"flow {tuple(f0_t.shape)} g {tuple(g_k3.shape)}")
+    k3b = {label: k3_bwd_call("warp2d_bwd", flow_warp, kernels.warp2d_bwd,
+                              flow, label)
+           for label, flow in (("SF train step, rigid flow", f0_t),
+                               ("random +-4 px flow", f_rand))}
+    head = k3b.pop("SF train step, rigid flow")
+    results["warp2d_bwd"] = dict(
+        {k: v for k, v in head.items() if k not in ("path", "run_to_run")},
+        path=head["path"], run_to_run=head["run_to_run"],
+        calls={f"{k} {tuple(f_rand.shape[:3])}": r for k, r in k3b.items()})
+    del f_rand
 
     # K4 at the DIS-MF train step's shapes: 4 tracks x 4 frames give S = 16
     # source planes and M = 48 pairs of 32 channels, at both fusion scales
@@ -551,6 +601,7 @@ def main() -> None:
     rng_p = np.random.RandomState(SEED + 11)
     k4 = {}
     parts = {torch.bfloat16: {}, torch.float32: {}}
+    rerun = {torch.bfloat16: 0.0, torch.float32: 0.0}
     table_mf = kernels._src_table("warp2d_pairs_bwd", src_mf, S_mf,
                                   len(src_mf), dev)
 
@@ -608,6 +659,9 @@ def main() -> None:
                   "at the MF shapes")
             grad = bwd(lambda x: flow_warp_pairs(x, pf, src_mf), feat, g)
             ref_g = warp2d_pairs_bwd_plain(pf, src_mf, g, S_mf)
+            # a second call on the same input: float atomics
+            rerun[dt] = max(rerun[dt], float((kernels.warp2d_pairs_bwd(
+                pf, src_mf, g, S_mf).float() - grad.float()).abs().max()))
             split = k4_bwd_parts(pf, g, S_mf)
             parts[dt]["path"] = split.pop("path")
             for part, t in split.items():
@@ -686,8 +740,9 @@ def main() -> None:
                 k4[(k, dt)].update(library_gather_ms=acc[k][4], path=k4_path)
                 lib += f", index_select + grid_sample {acc[k][4]:.4f} ms"
             else:
-                k4[(k, dt)].update(parts[dt])
-                lib += (f"; {parts[dt]['path']}; alone: " + ", ".join(
+                k4[(k, dt)].update(parts[dt], run_to_run=rerun[dt])
+                lib += (f"; two calls differ by {rerun[dt]:.3g}"
+                        f"; {parts[dt]['path']}; alone: " + ", ".join(
                     f"{p_} {t:.4f} ms" for p_, t in parts[dt].items()
                     if p_ != "path"))
             print(f"[kernel] warp2d_pairs_{k} {dt} (both scales): kernel "
@@ -699,15 +754,14 @@ def main() -> None:
             f32=k4[(k, torch.float32)])
 
     # K5: K3's kernels through the warp_kernel.warp2d entry point, at the
-    # MF geometric loss's depth sample (12 directions x 4 tracks, C = 1)
+    # MF geometric loss's depth sample (12 directions x 4 tracks, C = 1);
+    # K3's backward at that call too (the MF train step's)
     dirs_mf = _ordered_directions(TL)
     f0_mf = torch.cat([flow_mf[a, b] for a, b in dirs_mf]).contiguous()
     img5 = torch.as_tensor(rng_p.rand(*f0_mf.shape[:3], 1).astype(
         np.float32), device=dev)
-    g5 = torch.as_tensor(rng_p.randn(*f0_mf.shape[:3], 1).astype(
-        np.float32), device=dev)
     grid5 = grid_of(f0_mf[..., 0] + u, f0_mf[..., 1] + v)
-    img5n, g5n = img5.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
+    img5n = img5.permute(0, 3, 1, 2)
     m5 = f0_mf.shape[0] * H * W
     record("warp2d_v1_fwd", warp2d_v1(img5, f0_mf),
            warp2d_plain(img5, f0_mf),
@@ -718,15 +772,16 @@ def main() -> None:
                                          align_corners=True)),
            bound_ms(4 * m5 * (2 + 1 + 1)),
            f"img {tuple(img5.shape)} flow {tuple(f0_mf.shape)}")
-    record("warp2d_v1_bwd", bwd(lambda x: warp2d_v1(x, f0_mf), img5, g5),
-           warp2d_bwd_plain(f0_mf, g5),
-           cuda_ms(lambda: kernels.warp2d_v1_bwd(f0_mf, g5)),
-           cuda_ms(lambda: warp2d_bwd_plain(f0_mf, g5), reps=5),
-           cuda_ms(lambda: gs_bwd(g5n, img5n, grid5, 0, 0, True,
-                                  [True, False])),
-           bound_ms(4 * m5 * (2 + 1 + 1)),
-           f"flow {tuple(f0_mf.shape)} g {tuple(g5.shape)}")
-    del img5, g5, grid5, img5n, g5n
+    del img5, grid5, img5n
+    label = "MF train step, rigid flow"
+    results["warp2d_bwd"]["calls"][f"{label} {tuple(f0_mf.shape[:3])}"] = \
+        k3_bwd_call("warp2d_bwd", flow_warp, kernels.warp2d_bwd, f0_mf, label)
+    results["warp2d_v1_bwd"] = k3_bwd_call(
+        "warp2d_v1_bwd", warp2d_v1, kernels.warp2d_v1_bwd, f0_mf,
+        "K5, the MF loss's call")
+    k3b = results["warp2d_bwd"]
+    k3b["max_abs_err"] = max([k3b["max_abs_err"]] + [
+        r["max_abs_err"] for r in k3b["calls"].values()])
     # K3 at C = 5, the MF path's other calls: the MF geometric loss's
     # (flow, ambient, projected primary pixel) sample at full resolution
     # and FuseNet's geometry warp (xyz and the reverse flow) at 256x216
@@ -741,7 +796,7 @@ def main() -> None:
         k3r["calls"][f"{label} C=5 {tuple(flow.shape[:3])}"] = r
         k3r["max_abs_err"] = max(k3r["max_abs_err"], r["max_abs_err"])
         del img
-    del es_t, ta_t, g_t, pat_t, grid_t, g_k3, img_k3, grid_k3
+    del es_t, ta_t, g_t, pat_t, grid_t
     torch.cuda.empty_cache()
 
     # -- 4. serve ----------------------------------------------------------
@@ -970,6 +1025,8 @@ def main() -> None:
         check(rel_r.max() <= 1e-4, f"retest of epoch 0 differs: {rel_r}")
 
     mf_counts = mf_phases(settings, dev, smi, model, mf_np)
+    wire_cache_phase(settings, dev)
+    drift_phase(settings, dev, tb_np, mf_np)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -980,6 +1037,145 @@ def main() -> None:
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+
+
+def write_wire_cache(d: Path, settings, n: int, seed: int) -> None:
+    """A dataset directory that holds a wire cache and no HDF5: n in-memory
+    synthetic samples (make_track_batch with the stand-in primary),
+    quantized as the JAX package's build_wire_cache quantizes them
+    (clip(x * scale + 0.5, 0, 65535) as uint16; R and t float32) and written
+    with numpy as its .npy arrays and meta.json, beside settings.pkl and an
+    empty directory for each sample."""
+    from depthinspace_tpu_torch.data import (CACHE_DIR_NAME,
+                                             make_track_batch, save_settings)
+    fields = {"im": ("im", 65535.0), "ambient": ("ambient", 65535.0),
+              "disp": ("disp_gt", 256.0),
+              "primary_disp": ("primary_disp", 256.0), "R": ("R", None),
+              "t": ("t", None)}
+    cache = d / CACHE_DIR_NAME
+    cache.mkdir(parents=True)
+    names = [f"{i:08d}" for i in range(n)]
+    arrays = {}
+    for i in range(n):
+        b = make_track_batch(settings, tl=TL, bs=1, seed=seed + i,
+                             primary_noise=0.5)
+        for f, (key, scale) in fields.items():
+            x = getattr(b, key)[:, 0].astype(np.float32)
+            if scale is not None:
+                x = np.clip(x * scale + 0.5, 0, 65535).astype(np.uint16)
+            if f not in arrays:
+                arrays[f] = np.lib.format.open_memmap(
+                    cache / f"{f}.npy", mode="w+", dtype=x.dtype,
+                    shape=(n,) + x.shape)
+            arrays[f][i] = x
+    meta = {"version": 1, "names": names, "fields": {}}
+    for f, a in arrays.items():
+        a.flush()
+        meta["fields"][f] = {"shape": list(a.shape), "dtype": a.dtype.name,
+                             "missing": []}
+    (cache / "meta.json").write_text(json.dumps(meta))
+    save_settings(d / "settings.pkl", settings)
+    for name in names:
+        (d / name).mkdir()
+
+
+def wire_cache_phase(settings, dev) -> None:
+    """Phase 15: the SF worker (rigid flow) and the MF worker (flow from the
+    primary, "pred") train for 3 steps and test from a dataset directory
+    that holds only a wire cache, then retest epoch 0."""
+    import logging
+    from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
+    from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        write_wire_cache(data, settings, 8, SEED + 40)
+        print(f"[wire cache] 8 synthetic samples {H}x{W} written as a wire "
+              f"cache with numpy in {time.perf_counter() - t0:.1f} s")
+        for arch, cls, flow in (("single_frame", SingleFrameWorker, "rigid"),
+                                ("multi_frame", MultiFrameWorker, "pred")):
+            cfg = RunConfig(data_dir=data, output_dir=Path(tmp) / "out",
+                            architecture=arch, epochs=1, train_batch_size=2,
+                            test_batch_size=2, max_train_iter=3,
+                            num_workers=4, seed=SEED, flow_source=flow)
+            t0 = time.perf_counter()
+            cls(cfg, device=dev).do("retrain")
+            exp = Path(tmp) / "out" / arch
+            log = (exp / "train.log").read_text()
+            m0 = json.loads((exp / "metrics.json").read_text())["0"]
+            loss0 = m0["test"]["0"]["loss"]
+            cls(cfg, device=dev).do("retest", epoch=0)
+            again = json.loads((exp / "metrics.json").read_text())["0"][
+                "test"]["0"]["loss"]
+            rel_r = np.abs(np.array(again) - loss0) / np.abs(loss0)
+            for h in list(logging.root.handlers):
+                h.close()
+                logging.root.removeHandler(h)
+            print(f"[wire cache] {arch} worker, --flow_source {flow}: "
+                  f"{len(m0['train']['loss'])} train components after 3 "
+                  f"steps, test loss {sum(loss0):.5f}, dist2_mean "
+                  f"{m0['test']['0']['dist2_mean']:.3f}; retest of epoch 0 "
+                  f"within {rel_r.max():.2g} relative; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check("using wire cache for train split" in log
+                  and "using wire cache for test split" in log,
+                  f"the {arch} worker did not read the wire cache")
+            check(np.isfinite(loss0).all() and rel_r.max() <= 1e-4,
+                  f"{arch} retest from the wire cache differs: {rel_r}")
+
+
+def drift_phase(settings, dev, sf_np, mf_np) -> None:
+    """Phase 16: the SF train step (tl = 4, bs = 8, f32) and the MF train
+    step (4 tracks, bf16) run 5 times from the same weights, optimizer
+    state and batch, twice; the largest relative differences between the
+    two runs' losses and weights (float atomics in the backward kernels
+    and cuDNN's algorithms make them differ)."""
+    import torch
+    from depthinspace_tpu_torch.data import batch_to_torch
+    from depthinspace_tpu_torch.models import (DispNet, FuseNet,
+                                               init_dispnet_, init_fusenet_)
+    from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
+                                              make_mf_train_step,
+                                              make_sf_train_step)
+    ctx = make_loss_context(settings, TL, device=dev)
+    cases = (
+        ("SF train step, tl=4 bs=8 f32", sf_np, make_sf_train_step,
+         lambda: init_dispnet_(DispNet(max_disp=128.0),
+                               torch.Generator().manual_seed(SEED + 3))),
+        ("MF train step, 4 tracks bf16", mf_np, make_mf_train_step,
+         lambda: init_fusenet_(FuseNet((H, W), settings.K, TL,
+                                       compute_dtype=torch.bfloat16),
+                               torch.Generator().manual_seed(SEED + 5))))
+    for label, batch_np, make_step, make_model in cases:
+        batch = batch_to_torch(batch_np, dev)
+        runs = []
+        for _ in range(2):
+            model = make_model()
+            state = TrainState.create(model, 1e-4, seed=SEED, device=dev)
+            start = {k: p.detach().double().clone()
+                     for k, p in model.named_parameters()}
+            step = make_step(model, ctx, state)
+            losses = np.array([step(batch).cpu().numpy() for _ in range(5)])
+            runs.append((losses, {k: p.detach().double()
+                                  for k, p in model.named_parameters()},
+                         start))
+            del model, state, step
+        (l0, p0, s0), (l1, p1, _) = runs
+        norm = torch.linalg.vector_norm
+        d_loss = float(np.max(np.abs(l1 - l0) / np.abs(l0)))
+        d_w = max(float(norm(p1[k] - p0[k]) / norm(p0[k])) for k in p0)
+        d_upd = max(float(norm(p1[k] - p0[k]) / norm(p0[k] - s0[k]))
+                    for k in p0 if float(norm(p0[k] - s0[k])) > 0)
+        print(f"[drift] {label}, 5 steps from the same state and batch, "
+              f"twice: largest relative difference of a loss component "
+              f"{d_loss:.3g}; of a parameter tensor {d_w:.3g} (relative "
+              f"L2), {d_upd:.3g} of its 5 steps' update; first step's "
+              f"components bitwise equal: {np.array_equal(l0[0], l1[0])}")
+        check(np.isfinite(l0).all() and np.isfinite(l1).all(),
+              f"{label}: drift runs not finite")
+        del batch, runs, p0, p1, s0
+        torch.cuda.empty_cache()
 
 
 def grad_diff(a: dict, b: dict) -> tuple[float, dict]:

@@ -2,8 +2,7 @@
 from ``config.json`` (OUTPUT_DIR, DATA_DIR, ...) and the hyperparameters of
 the CLI (``utils/args.py``) in one dataclass. It has the JAX package's
 fields that this package uses; the CLI flags for machinery it does not have
-(the device mesh, the wire cache, the device metric) are parsed and
-dropped.
+(the device mesh, the device metric) are parsed and dropped.
 """
 
 from __future__ import annotations
@@ -48,6 +47,7 @@ class RunConfig:
     mf_dtype: str = "bfloat16"              # FuseNet compute dtype
     mf_remat: bool = False                  # checkpoint FuseNet's blocks
     device_augment: bool = True
+    wire_cache: bool = True                 # read <data_dir>/wire_cache
     test_frequency: int = 1                 # eval every N epochs
     flow_source: str = "file"               # file | rigid | pred
     photometric_pyramid: bool = False

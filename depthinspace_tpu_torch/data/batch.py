@@ -24,10 +24,19 @@ class Batch(NamedTuple):
     sgm_disp: Optional[Any] = None    # (tl, bs, H, W)
 
 
+_WIRE_TYPES = (np.uint16, np.int16)
+
+
 def batch_to_torch(batch: Batch, device) -> Batch:
-    """numpy Batch -> float32 tensors on ``device`` (None stays None)."""
+    """numpy Batch -> tensors on ``device`` (None stays None): the 16-bit
+    fields of the wire encoding (``data/wire.py``) keep their dtype, so
+    they cross to the device at half the bytes and ``wire.decode_batch``
+    decodes them there; every other field as float32."""
     def conv(v):
         if v is None:
             return None
-        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        v = np.asarray(v)
+        if v.dtype not in _WIRE_TYPES:
+            v = v.astype(np.float32, copy=False)
+        return torch.as_tensor(np.ascontiguousarray(v), device=device)
     return Batch(*(conv(v) for v in batch))

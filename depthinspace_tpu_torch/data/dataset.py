@@ -198,9 +198,11 @@ def collate(samples: Sequence[dict]) -> Batch:
 
 class DataLoader:
     """Threaded prefetching loader: a pool reads and collates the samples of
-    the next batches while the consumer runs, and ``transform`` (for example
-    the copy to the device) runs on its own thread. Shuffles with the global
-    numpy RNG, like the JAX package's loader."""
+    the next batches while the consumer runs (or the dataset's
+    ``get_batch`` assembles a batch at once, as the wire cache's does), and
+    ``transform`` (for example the copy to the device) runs on its own
+    thread. Shuffles with the global numpy RNG, like the JAX package's
+    loader."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False,
@@ -227,6 +229,7 @@ class DataLoader:
                    for i in range(len(self))]
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        get_batch = getattr(self.dataset, "get_batch", None)
 
         def producer():
             try:
@@ -235,8 +238,8 @@ class DataLoader:
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        b = collate(list(ex.map(self.dataset.__getitem__,
-                                                idxs)))
+                        b = get_batch(idxs) if get_batch else collate(
+                            list(ex.map(self.dataset.__getitem__, idxs)))
                         q.put(tx.submit(self.transform, b)
                               if self.transform else b)
             except BaseException as e:     # surface errors to the consumer

@@ -132,7 +132,7 @@ def library() -> ctypes.CDLL:
 def variant_library() -> ctypes.CDLL:
     """The kernels built with :data:`VARIANT_FLAGS`: the entry points of
     :func:`library` and the ``dis_ab_*`` ones, which also launch the
-    variants that lost their A/B comparison, run one part of K4's
+    variants that lost their A/B comparison, run one part of K4's or K3's
     backward alone, or run K1 with the rows a warp writes given, for timing
     (scripts/ab_torch_kernels.py, chip_smoke.py). No wrapper calls it."""
     so, _ = build(VARIANT_FLAGS)
@@ -145,6 +145,8 @@ def bind_variants(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_ab_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                       i32, ptr]
     lib.dis_ab_warp2d_fwd.restype = i32
+    lib.dis_ab_warp2d_bwd.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.dis_ab_warp2d_bwd.restype = i32
     lib.dis_ab_warp2d_pairs_bwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.dis_ab_warp2d_pairs_bwd.restype = i32
     f32 = ctypes.c_float
@@ -176,7 +178,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_xwarp_bwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32,
                                   ptr]
     lib.dis_xwarp_bwd.restype = i32
-    lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                   ptr]
     lib.dis_warp2d_bwd.restype = i32
     lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
                                          i32, i32, i32, i32, i32, ptr]
@@ -383,13 +386,28 @@ def _warp2d_fwd(kernel: str, img: torch.Tensor,
     return out
 
 
+# K3's strip backward: C as a template parameter up to this many channels
+WARP2D_BWD_STRIP_MAX_C = 8
+
+
+def warp2d_bwd_path(C: int, H: int, W: int, flow_ptr: int) -> int:
+    """Which kernel K3's (and K5's) backward launches for C channels on
+    H x W images: 1 is the strip kernel (corners merged in registers; C =
+    1..8, a flow 8-byte aligned for its float2 loads, and (H + 2) * (W + 4)
+    below 2^31 for its packed corner keys), 0 the first design (any C)."""
+    return int(1 <= C <= WARP2D_BWD_STRIP_MAX_C and flow_ptr % 8 == 0
+               and (H + 2) * (W + 4) < 2 ** 31)
+
+
 def _warp2d_bwd(kernel: str, flow: torch.Tensor,
                 g: torch.Tensor) -> torch.Tensor:
     M, H, W, C = _warp2d_shapes(kernel, "g", g, flow)
     grad = torch.empty_like(g)
     if grad.numel():
+        path = warp2d_bwd_path(C, H, W, flow.data_ptr())
         _launch(kernel, library().dis_warp2d_bwd, flow.data_ptr(),
-                g.data_ptr(), grad.data_ptr(), M, H, W, C, device=g.device)
+                g.data_ptr(), grad.data_ptr(), M, H, W, C, path,
+                device=g.device)
     return grad
 
 
@@ -402,8 +420,10 @@ def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def warp2d_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3 bwd: flow (M, H, W, 2), g (M, H, W, C) float32 -> grad wrt img
-    (M, H, W, C); the flow gets none. Float atomics: the bits of a sum of
-    three or more contributions vary from run to run."""
+    (M, H, W, C); the flow gets none. The strip kernel or the first design,
+    as :func:`warp2d_bwd_path` chooses by C and alignment. Float atomics:
+    the bits of a sum of three or more contributions vary from run to
+    run."""
     return _warp2d_bwd("warp2d_bwd", flow, g)
 
 

@@ -4,10 +4,12 @@
 The train step runs the forward, the loss vector, backward and one Adam
 update, eagerly; the eval step runs the forward and the components under
 ``torch.inference_mode()`` and returns disp0 quantized to u16 x256 (1/256
-px) as the JAX step does. Both apply the flow source first (``rigid``
-computes the flow from the GT disparity; for DIS-MF ``pred`` computes it
-from the primary disparity); for DIS-SF with ``flow_source="pred"`` the
-flow comes from the live prediction inside ``sf_losses``.
+px) as the JAX step does. Both decode the batch's 16-bit wire fields
+first (``data/wire.py::decode_batch``; float32 fields pass through), then
+apply the flow source (``rigid`` computes the flow from the GT disparity;
+for DIS-MF ``pred`` computes it from the primary disparity); for DIS-SF
+with ``flow_source="pred"`` the flow comes from the live prediction inside
+``sf_losses``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..data.batch import Batch
+from ..data.wire import decode_batch
 from ..ops import disp_to_depth
 from .objective import (LossContext, augment_batch_device, draw_augment,
                         mf_losses, prepare_batch, preprocess_images, sf_losses)
@@ -69,6 +72,7 @@ def _make_train_step(architecture: str, model: torch.nn.Module,
     def train_step(batch: Batch, epoch: float = 0) -> torch.Tensor:
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        batch = decode_batch(batch)
         comps_sum = None
         chunks = chunk_batch(batch, accum_steps) if accum_steps > 1 \
             else [batch]
@@ -104,7 +108,7 @@ def _make_eval_step(architecture: str, model: torch.nn.Module,
 
     @torch.inference_mode()
     def eval_step(batch: Batch, epoch: float = 0):
-        batch = prepare_batch(batch, ctx, multi_frame)
+        batch = prepare_batch(decode_batch(batch), ctx, multi_frame)
         outs = forward(model, batch, ctx)
         _, comps = losses(outs, batch, ctx, train=False, epoch=epoch)
         disp = take_disp0(outs, batch)
@@ -138,8 +142,8 @@ def make_mf_train_step(model: torch.nn.Module, ctx: LossContext,
 
 def make_sf_eval_step(model: torch.nn.Module, ctx: LossContext):
     """Returns ``eval_step(batch, epoch=0) -> (disp0_u16 (tl, bs, H, W)
-    uint16, components float32)``; ``batch`` holds float32 tensors on the
-    model's device (``data.batch_to_torch``)."""
+    uint16, components float32)``; ``batch`` holds float32 or wire-encoded
+    tensors on the model's device (``data.batch_to_torch``)."""
     return _make_eval_step("single_frame", model, ctx)
 
 

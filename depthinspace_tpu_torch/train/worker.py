@@ -11,11 +11,18 @@ every epoch it is given, whatever the test frequency) and ``test_init``
 behave the same, as do ``max_train_iter``, ``test_samples`` and
 ``deadline_ts``.
 
+The inputs are the JAX worker's too: every batch is quantized to the
+16-bit wire encoding on the host (``data/wire.py``), whether it comes from
+HDF5, the wire cache or in-memory samples, and decoded to float32 at the
+start of each step; the test metrics score the disparity against the
+decoded GT. The wire cache (``data/cache.py``) is read where the JAX worker
+reads it (:meth:`Worker.cached_dataset`).
+
 Departures, each because the machinery is not ported: no device mesh (one
-card), no wire cache, the exact host metrics for every split size (the JAX
-package streams large splits through an on-device accumulator), no debug
-images or errs.png, and no geo_oor_frac (this package's flow warp drops no
-flow beyond a shift bound).
+card), the exact host metrics for every split size (the JAX package
+streams large splits through an on-device accumulator), no debug images or
+errs.png, and no geo_oor_frac (this package's flow warp drops no flow
+beyond a shift bound).
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
-from ..data import (DataLoader, SyntheticTrackDataset, TrackDataset,
-                    batch_to_torch, load_settings)
+from ..data import (BASE_FIELDS, CachedTrackDataset, DataLoader,
+                    SyntheticTrackDataset, TrackDataset, batch_to_torch,
+                    decode_batch_np, decode_disp_np, encode_batch,
+                    has_wire_cache, load_settings)
 from ..data.dataset import SyntheticSource
 from ..device import resolve_device
 from ..utils import metric as metric_lib
@@ -175,13 +184,47 @@ class Worker:
     def make_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def cached_dataset(self, paths, train: bool, load_primary: bool = False,
+                       load_pseudo_gt: bool = False):
+        """The split's wire-cache dataset (``data/cache.py``) where the JAX
+        worker reads one: the cache holds every field the split needs, the
+        flow is not read from flow.hdf5 (the cache has none) and a train
+        split is augmented on the device. None means the HDF5
+        ``TrackDataset``; so does a cache that misses a requested sample or
+        field, which is logged."""
+        if not self.cfg.wire_cache or self.cfg.flow_source == "file":
+            return None
+        if train and not self.cfg.device_augment:
+            return None
+        load_sgm = self.cfg.data_type == "real"
+        fields = list(BASE_FIELDS)
+        fields += ["primary_disp"] if load_primary else []
+        fields += ["pseudo_gt"] if load_pseudo_gt else []
+        fields += ["sgm_disp"] if load_sgm else []
+        if not has_wire_cache(self.cfg.data_dir, fields):
+            return None
+        names = [Path(p).name for p in paths]
+        try:
+            dset = CachedTrackDataset(
+                self.cfg.data_dir, names, track_length=self.cfg.track_length,
+                train=train, load_primary=load_primary,
+                load_pseudo_gt=load_pseudo_gt, load_sgm=load_sgm)
+        except FileNotFoundError as e:
+            logging.info(f"wire cache unusable ({e}); using HDF5 loader")
+            return None
+        logging.info(f"using wire cache for {'train' if train else 'test'} "
+                     f"split ({len(dset)} samples)")
+        return dset
+
     def _dataset(self, samples, train: bool):
-        """The split's dataset: optical flow from flow.hdf5 when
-        flow_source is "file"; DIS-MF adds the primary disparities, and its
-        test sets alone the pseudo GT; in-memory samples when the worker has
-        a source."""
+        """The split's dataset: the wire cache where
+        :meth:`cached_dataset` takes it, else HDF5, with optical flow from
+        flow.hdf5 when flow_source is "file"; DIS-MF adds the primary
+        disparities, and its test sets alone the pseudo GT; in-memory
+        samples when the worker has a source."""
         mf = self.architecture == "multi_frame"
         load_flow = self.cfg.flow_source == "file"
+        load_pseudo_gt = self.cfg.use_pseudo_gt and not (mf and train)
         if self.source is not None:
             if self.cfg.use_pseudo_gt or self.cfg.data_type == "real":
                 raise ValueError("in-memory synthetic samples carry no "
@@ -189,11 +232,14 @@ class Worker:
             return SyntheticTrackDataset(
                 self.source, samples, track_length=self.cfg.track_length,
                 train=train, load_flow=load_flow, load_primary=mf)
+        cached = self.cached_dataset(samples, train, load_primary=mf,
+                                     load_pseudo_gt=load_pseudo_gt)
+        if cached is not None:
+            return cached
         return TrackDataset(
             self.settings, samples, train=train,
             track_length=self.cfg.track_length, load_flow=load_flow,
-            load_primary=mf,
-            load_pseudo_gt=self.cfg.use_pseudo_gt and not (mf and train),
+            load_primary=mf, load_pseudo_gt=load_pseudo_gt,
             data_type=self.cfg.data_type)
 
     def make_train_set(self):
@@ -229,10 +275,16 @@ class Worker:
                                  seed=self.cfg.seed, device=self.device)
 
     def _loader(self, dset, batch_size, train: bool) -> DataLoader:
+        """Batches as (the wire-encoded host batch, its tensors on the
+        device), encoded and copied on the loader's thread."""
         device = self.device
+
+        def transform(b):
+            enc = encode_batch(b)
+            return enc, batch_to_torch(enc, device)
         return DataLoader(dset, batch_size, shuffle=train,
                           num_workers=self.cfg.num_workers, drop_last=train,
-                          transform=lambda b: (b, batch_to_torch(b, device)))
+                          transform=transform)
 
     # ------------------------------------------------------------- train
     def train(self, resume=True) -> TrainState:
@@ -335,9 +387,9 @@ class Worker:
         loss_acc, n = None, 0
         for batch_idx, (host, batch) in enumerate(loader):
             disp0, comps = eval_step(batch, epoch)
-            # u16 x256 fixed point, decoded as the JAX worker does
-            es = disp0.cpu().numpy().astype(np.float32) * (1.0 / 256.0)
-            gt = host.disp_gt
+            # u16 x256 fixed point against the decoded GT, as the JAX worker
+            es = decode_disp_np(disp0.cpu().numpy())
+            gt = decode_batch_np(host).disp_gt
             es = es * (gt > 0)
             met.add(es.reshape(-1, 1), gt.reshape(-1, 1))
             loss_acc = comps if loss_acc is None else loss_acc + comps

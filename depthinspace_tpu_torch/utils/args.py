@@ -45,8 +45,10 @@ def parse_args(argv=None):
         default=True, type=str2bool)
     add("--photometric_pyramid", help="Compute the scale-s photometric loss "
         "at 1/2^s resolution", default=False, type=str2bool)
-    add("--wire_cache", help="Accepted for compatibility; this package has "
-        "no wire cache", default=True, type=str2bool)
+    add("--wire_cache", help="Read the batches from <data_dir>/wire_cache "
+        "(built by python -m depthinspace_tpu.tools.build_cache) when it "
+        "holds every field, the flow source is not 'file' and training "
+        "augments on the device", default=True, type=str2bool)
     add("--test_frequency", help="Evaluate every N epochs", default=1,
         type=int)
     add("--test_batch_size", help="Eval batch size", default=4, type=int)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K1 forward and backward, K3/K5 forward and K4 backward of the PyTorch
-port against an older version of their CUDA sources, on one NVIDIA card,
-measured in turns.
+"""K1 forward and backward, K3/K5 forward and backward and K4 backward of
+the PyTorch port against an older version of their CUDA sources, on one
+NVIDIA card, measured in turns.
 
     mkdir -p build/old && git archive <commit> depthinspace_tpu_torch/csrc \\
         | tar -x -C build/old
@@ -14,12 +14,14 @@ entry points that reach them) and the older sources of the chosen kernels
 (``--kernels``, a comma list of k1, k3, k4) with nvcc into one library under
 ``build/ab/``, the older entry points renamed ``dis_old_*``: k1 takes the
 older ``census_sad.cu`` (any version with the forward and the backward:
-their C interface has not changed), k3 and k4 the older ``warp2d.cu`` and
-``warp2d_pairs.cu`` with the interface they had at commit 8658ce4, before
-K3's forward took a path and K4's backward an order table and a path. Every variant is checked against
-the plain version before any time is printed: K1 and K1 bwd within
-chip_smoke.py's 1e-5, K3's forward bit for bit, K4's backward within
-chip_smoke.py's tolerance (float atomics). Then each variant is timed at the
+their C interface has not changed), k3 the older ``warp2d.cu`` with the
+interface it had from commit b4bb124 (the forward's path argument) until
+K3's backward took one, and k4 the older ``warp2d_pairs.cu`` with the
+interface it had at commit 8658ce4, before K4's backward took an order
+table and a path. Every variant is checked against the plain version
+before any time is printed: K1, K1 bwd and K3 bwd within chip_smoke.py's
+1e-5, K3's forward bit for bit, K4's backward within chip_smoke.py's
+tolerance (float atomics). Then each variant is timed at the
 main paths' shapes, first in the listed order and then in reverse (old,
 new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
 (median of 25, each call queued behind a device sleep):
@@ -33,6 +35,13 @@ new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
   (48, 256, 216): the old kernel, the first design as this checkout builds
   it, and the vector kernel with 1, 2 and 4 pixels a thread (C = 1) or with
   direct and staged stores (C >= 2);
+- K3's (and K5's) backward, C = 1, on the rigid flows of the SF train
+  step (96, 512, 432) and the MF step and K5 (48, 512, 432), and on a
+  random flow of +-4 px at (96, 512, 432): the old kernel, the first
+  design, the entry point (the strip kernel, 2 rows a lane), the strip
+  kernel with 1, 2, 4 and 8 rows a lane, the shared-memory tile kernel with
+  a float4 flush (1 and 2 rows a warp) and a scalar one; then the entry
+  point's zeroing, scatter, and scatter without its atomics, each alone;
 - K4's backward at the DIS-MF train step's shapes (S = 16, M = 48, 32
   channels, at 256x216 and 128x108, summed) in bfloat16 and float32: the
   old kernel, the scalar scatter, the vector scatter with 1 and 2 vectors a
@@ -40,8 +49,8 @@ new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
   table order; then the chosen path's zeroing, scatter and cast, each
   alone.
 
-The yardstick (F.grid_sample; for K4 grid_sample's backward on the gathered
-stack) is timed once; K1 has none. Prints one line a measurement, the card's
+The yardstick (F.grid_sample or its backward; for K4 grid_sample's backward
+on the gathered stack) is timed once; K1 has none. Prints one line a measurement, the card's
 name and power limit, and last one JSON object (also written to ``--out``).
 """
 
@@ -117,6 +126,8 @@ def build_ab(old_csrc: Path, kernels, sections) -> ctypes.CDLL:
                                                i32, f32, f32, f32, ptr]
     if "k3" in sections:
         lib.dis_old_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                           i32, ptr]
+        lib.dis_old_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                            ptr]
     if "k4" in sections:
         lib.dis_old_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
@@ -253,7 +264,9 @@ def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
             variants[name] = lambda: call(fn, *args, out.data_ptr(), M, h, w,
                                           C, *extra)
 
-        add("old", lib.dis_old_warp2d_fwd)
+        chosen = kernels.warp2d_fwd_path(C, M * h * w, flow.data_ptr(),
+                                         ref.data_ptr())
+        add("old", lib.dis_old_warp2d_fwd, chosen)
         add("first design", lib.dis_warp2d_fwd, 0)
         for ppt, staged in (((1, 0), (2, 0), (4, 0)) if C == 1
                             else ((1, 0), (1, 1))):
@@ -268,8 +281,6 @@ def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
         if not all(same.values()):
             raise RuntimeError(f"K3 {label} C={C} differs from the plain "
                                "version")
-        chosen = kernels.warp2d_fwd_path(C, M * h * w, flow.data_ptr(),
-                                         ref.data_ptr())
         times = in_turns(variants)
         u = torch.arange(w, dtype=torch.float32, device=dev)
         v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
@@ -287,6 +298,83 @@ def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
         print(f"[ab] {key}: chosen: {chosen} px a thread; bound "
               f"{bound:.4f} ms")
         del img, ref, outs, variants, grid, nchw
+    return result
+
+
+def k3_backward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
+    """K3's backward (C = 1), old and every new variant, at the SF and MF
+    train steps' calls, on their rigid flows and on a random one."""
+    import torch
+    from depthinspace_tpu_torch.losses.geometric import _ordered_directions
+    from depthinspace_tpu_torch.ops.resample import warp2d_bwd_plain
+
+    gs_bwd = torch.ops.aten.grid_sampler_2d_backward
+    dirs = _ordered_directions(TL)
+    f_sf = torch.cat([sf_flow[a, b] for a, b in dirs])
+    f_sf = f_sf.repeat(96 // f_sf.shape[0], 1, 1, 1).contiguous()
+    f_mf = torch.cat([mf_flow[a, b] for a, b in dirs]).contiguous()
+    rng = np.random.RandomState(32)
+    f_rand = torch.as_tensor(rng.uniform(-4.0, 4.0, f_sf.shape).astype(
+        np.float32), device=dev)
+    tol = chip_smoke.TOL["warp2d_bwd"]
+    result = {}
+    for label, flow in (("SF train step, rigid flow", f_sf),
+                        ("MF train step and K5, rigid flow", f_mf),
+                        ("random +-4 px flow", f_rand)):
+        M, h, w = flow.shape[:3]
+        g = torch.as_tensor(rng.randn(M, h, w, 1).astype(np.float32),
+                            device=dev)
+        ref = warp2d_bwd_plain(flow, g)
+        grad = torch.empty_like(g)
+        args = (flow.data_ptr(), g.data_ptr(), grad.data_ptr(), M, h, w, 1)
+        chosen = kernels.warp2d_bwd_path(1, h, w, flow.data_ptr())
+        def ab(path, rows, parts=3):
+            return lambda: call(lib.dis_ab_warp2d_bwd, *args, path, rows,
+                                parts)
+
+        variants = {
+            "old": lambda: call(lib.dis_old_warp2d_bwd, *args),
+            "first design": ab(0, 0),
+            "entry point": lambda: call(lib.dis_warp2d_bwd, *args, chosen),
+            "tile, float4 flush, 1 row a warp": ab(2, 1),
+            "tile, float4 flush, 2 rows a warp": ab(2, 2),
+            "tile, scalar flush, 2 rows a warp": ab(3, 2)}
+        for rows in (1, 2, 4, 8):
+            variants[f"strip, {rows} rows a lane"] = ab(1, rows)
+        errs = {}
+        for name, f in variants.items():
+            grad.fill_(float("nan"))
+            f()
+            torch.cuda.synchronize()
+            errs[name] = float((grad - ref).abs().max())
+            if not errs[name] <= tol:
+                raise RuntimeError(f"K3 bwd {label} {name} differs from the "
+                                   f"plain version: {errs[name]}")
+        times = in_turns(variants)
+        # the entry point's parts, each alone: the zeroing, the scatter, and
+        # the scatter without its atomics (its loads and arithmetic)
+        for part, bits in (("zeroing", 1), ("scatter", 2),
+                           ("scatter without atomics", 6),
+                           ("scatter's loads", 10)):
+            times[f"strip, {part} alone"] = [chip_smoke.cuda_ms(ab(1, 4,
+                                                                   bits))]
+        u = torch.arange(w, dtype=torch.float32, device=dev)
+        v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        grid = chip_smoke.grid_of(flow[..., 0] + u, flow[..., 1] + v)
+        g_n, img_n = g.permute(0, 3, 1, 2), torch.zeros_like(g).permute(
+            0, 3, 1, 2)
+        times["grid_sample bwd"] = [chip_smoke.cuda_ms(lambda: gs_bwd(
+            g_n, img_n, grid, 0, 0, True, [True, False]))]
+        bound = chip_smoke.bound_ms(4 * M * h * w * (2 + 1 + 1))[0]
+        key = f"warp2d_bwd {label} ({M}, {h}, {w}, 1)"
+        result[key] = dict(times, chosen_path=chosen, bound_ms=bound,
+                           max_abs_err=errs)
+        for name, t in times.items():
+            print(f"[ab] {key}: {name} {[round(x, 4) for x in t]} ms"
+                  + (f" (max|kernel-plain| {errs[name]:.3g})"
+                     if name in errs else ""))
+        print(f"[ab] {key}: chosen path {chosen}; bound {bound:.4f} ms")
+        del g, ref, grad, grid, g_n, img_n, variants
     return result
 
 
@@ -415,6 +503,7 @@ def main() -> None:
         sf_flow = torch.as_tensor(make_track_batch(settings, tl=TL, bs=2,
                                                    seed=0).flow, device=dev)
         result.update(k3_forward(lib, kernels, dev, sf_flow, mf_flow))
+        result.update(k3_backward(lib, kernels, dev, sf_flow, mf_flow))
     if "k4" in sections:
         result.update(k4_backward(lib, kernels, dev, mf_flow))
     print(smi)

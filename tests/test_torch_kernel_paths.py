@@ -1,6 +1,6 @@
 """What the port's kernel wrappers decide on the host, where no card is
-needed: which kernel K4's forward and backward, K3's forward and K2's
-forward take for a shape, type and alignment, the source-major launch order
+needed: which kernel K4's forward and backward, K3's forward and backward
+and K2's forward take for a shape, type and alignment, the source-major launch order
 of K4's pairs, and that a wrapper refuses a CPU tensor instead of computing
 anything itself."""
 import numpy as np
@@ -58,6 +58,28 @@ def test_warp2d_fwd_path_by_channels(C):
     (3, 8, 0, 1), (3, 0, 4, 1), (5, 24, 12, 1), (5, 2, 0, 0), (8, 4, 16, 0)])
 def test_warp2d_fwd_path_by_alignment(C, flow, out, want):
     assert kernels.warp2d_fwd_path(C, 1000, flow, out) == want
+
+
+@pytest.mark.parametrize("C", range(1, 13))
+def test_warp2d_bwd_path_by_channels(C):
+    path = kernels.warp2d_bwd_path(C, 512, 432, 256)
+    assert path == (0 if C > kernels.WARP2D_BWD_STRIP_MAX_C else 1)
+
+
+@pytest.mark.parametrize("C,flow,want", [
+    # the strip kernel reads the flow as float2: 8-byte aligned
+    (1, 0, 1), (1, 8, 1), (1, 24, 1), (1, 4, 0), (3, 2, 0), (8, 16, 1),
+    (9, 0, 0)])
+def test_warp2d_bwd_path_by_alignment(C, flow, want):
+    assert kernels.warp2d_bwd_path(C, 5, 3, flow) == want
+
+
+def test_warp2d_bwd_path_by_size():
+    """The strip kernel's corner keys y0 * (W + 4) + x0 fit in int32."""
+    assert kernels.warp2d_bwd_path(1, 65535, 32000, 0) == 1
+    assert kernels.warp2d_bwd_path(1, 65535, 32763, 0) == 1
+    assert kernels.warp2d_bwd_path(1, 65535, 32764, 0) == 0
+    assert kernels.warp2d_bwd_path(1, 1, 2 ** 30, 0) == 0
 
 
 def test_warp2d_fwd_path_by_size():
@@ -144,6 +166,21 @@ def test_warp2d_fwd_launches_the_chosen_path(monkeypatch, C):
                                                     args[2]),)
 
 
+@pytest.mark.parametrize("C,W", [(1, 7), (1, 8), (3, 8), (8, 7), (11, 8)])
+def test_warp2d_bwd_launches_the_chosen_path(monkeypatch, C, W):
+    rec = _Recorder(monkeypatch)
+    g, flow = torch.zeros(2, 9, W, C), torch.zeros(2, 9, W, 2)
+    for fn, name in ((kernels.warp2d_bwd, "warp2d_bwd"),
+                     (kernels.warp2d_v1_bwd, "warp2d_v1_bwd")):
+        grad = fn(flow, g)
+        got, lib_fn, args = rec.calls[-1]
+        assert (got, lib_fn) == (name, "dis_warp2d_bwd")
+        # flow, g, grad, M, H, W, C, path
+        assert args[:3] == (flow.data_ptr(), g.data_ptr(), grad.data_ptr())
+        assert args[3:7] == (2, 9, W, C)
+        assert args[7:] == (kernels.warp2d_bwd_path(C, 9, W, args[0]),)
+
+
 def _track_table(tl: int, N: int) -> tuple:
     """The table FuseNet's fusion blocks give K4 (Block2D3D.
     gather_warped_feat): target-major pairs, each source plane j*N + n."""
@@ -212,3 +249,5 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.xwarp_fwd(torch.zeros(9, 8), torch.zeros(2, 9, 8))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.warp2d_fwd(torch.zeros(2, 9, 7, 3), torch.zeros(2, 9, 7, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.warp2d_bwd(torch.zeros(2, 9, 7, 2), torch.zeros(2, 9, 7, 3))

@@ -299,23 +299,135 @@ def test_xwarp_bwd_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(grad_t, grad, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape,C,max_flow", [((1, 5, 3), 1, 4.0),
-                                              ((3, 37, 50), 1, 30.0),
-                                              ((2, 9, 7), 5, 12.0),
-                                              ((96, 512, 432), 1, 4.0)])
-def test_warp2d_bwd_kernel_matches_plain(cuda, shape, C, max_flow):
+# (shape, C, max |flow|, the path warp2d_bwd_path takes): ragged blocks (W
+# and H not multiples of the strip kernel's 32 columns x 16 rows, W below
+# one block), C = 1..8 (the strip kernel) and C = 9 (the first design)
+@pytest.mark.parametrize("shape,C,max_flow,path", [
+    ((1, 5, 3), 1, 4.0, 1), ((3, 37, 50), 1, 30.0, 1),
+    ((2, 9, 7), 5, 12.0, 1), ((96, 512, 432), 1, 4.0, 1),
+    ((2, 40, 64), 1, 6.0, 1), ((1, 100, 433), 1, 8.0, 1),
+    ((2, 17, 130), 3, 3.0, 1), ((2, 33, 68), 3, 3.0, 1),
+    ((2, 37, 70), 8, 6.0, 1), ((2, 21, 19), 9, 6.0, 0)])
+def test_warp2d_bwd_kernel_matches_plain(cuda, shape, C, max_flow, path):
     M, H, W = shape
     rng = np.random.RandomState(16)
     flow = torch.from_numpy(rng.uniform(-max_flow, max_flow, (M, H, W, 2))
                             .astype(np.float32)).to(cuda)
     img, g = _randn((M, H, W, C), 17, cuda), _randn((M, H, W, C), 18, cuda)
-    before = kernels.launches["warp2d_bwd"]
+    assert kernels.warp2d_bwd_path(C, H, W, flow.data_ptr()) == path
+    before = dict(kernels.launches)
     grad = _grad_of(lambda x: flow_warp(x, flow), img, g)
+    grad_v1 = _grad_of(lambda x: warp2d_v1(x, flow), img, g)
     torch.cuda.synchronize()
-    assert kernels.launches["warp2d_bwd"] == before + 1
+    assert kernels.launches["warp2d_bwd"] == before["warp2d_bwd"] + 1
+    assert kernels.launches["warp2d_v1_bwd"] == before["warp2d_v1_bwd"] + 1
     # float atomics: sums of 3+ contributions in a varying order
+    ref = warp2d_bwd_plain(flow, g)
+    torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(grad_v1, ref, rtol=0, atol=1e-5)
+
+
+def _rigid_flows(tracks, seed):
+    """The rigid flows of synthetic 512x432 tracks of 4 frames, as the
+    geometric losses warp with them: the 12 ordered directions of each
+    track, (12 * tracks, 512, 432, 2)."""
+    from depthinspace_tpu_torch.data import make_settings, make_track_batch
+    from depthinspace_tpu_torch.losses.geometric import _ordered_directions
+    b = make_track_batch(make_settings(512, 432), tl=4, bs=tracks, seed=seed)
+    return torch.cat([torch.from_numpy(np.ascontiguousarray(b.flow[i, j]))
+                      for i, j in _ordered_directions(4)])
+
+
+# the SF train step's K3 bwd (12 directions x 8 tracks) and the MF step's
+# and K5's (12 x 4), on the smooth rigid flows the strip kernel is built for
+@pytest.mark.parametrize("M", [96, 48])
+def test_warp2d_bwd_strip_kernel_on_rigid_flow(cuda, M):
+    flow = _rigid_flows(4, 5)
+    flow = torch.cat([flow] * (M // 48)).to(cuda)
+    g = _randn((M, 512, 432, 1), 19, cuda)
+    grad = kernels.warp2d_bwd(flow, g)
+    assert kernels.warp2d_bwd_path(1, 512, 432, flow.data_ptr()) == 1
     torch.testing.assert_close(grad, warp2d_bwd_plain(flow, g), rtol=0,
                                atol=1e-5)
+    torch.testing.assert_close(kernels.warp2d_v1_bwd(flow, g), grad, rtol=0,
+                               atol=1e-5)
+
+
+def _rough_flow(kind, shape, seed):
+    """Flows under which neighbouring pixels share few corners: a step
+    across column 100 (inside the strip kernel's fourth block of 32
+    columns), a random flow of +-60 px, and a small random flow with NaN
+    and +-1e9 entries (5 % each)."""
+    M, H, W = shape
+    rng = np.random.RandomState(seed)
+    if kind == "step":
+        flow = np.empty((M, H, W, 2), np.float32)
+        flow[:, :, :100] = (3.25, 1.5)
+        flow[:, :, 100:] = (-45.5, 20.25)
+        flow += rng.uniform(-0.5, 0.5, flow.shape).astype(np.float32)
+    elif kind == "random60":
+        flow = rng.uniform(-60.0, 60.0, (M, H, W, 2)).astype(np.float32)
+    else:
+        flow = rng.uniform(-4.0, 4.0, (M, H, W, 2)).astype(np.float32)
+        pick = rng.rand(*flow.shape)
+        flow[pick < 0.05] = np.nan
+        flow[(pick >= 0.05) & (pick < 0.075)] = 1e9
+        flow[(pick >= 0.075) & (pick < 0.1)] = -1e9
+    return torch.from_numpy(flow)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("kind", ["step", "random60", "nan_huge"])
+def test_warp2d_bwd_on_step_random_and_nan_flows(cuda, kind, C):
+    shape = (2, 70, 200)
+    flow = _rough_flow(kind, shape, 60).to(cuda)
+    g = _randn(shape + (C,), 61, cuda)
+    grad = kernels.warp2d_bwd(flow, g)
+    # a NaN coordinate has no valid corner, as a flow that leaves the
+    # image (the kernels clamp before the int conversion; the plain
+    # version's cast of NaN to an index differs between devices)
+    ref = warp2d_bwd_plain(flow.nan_to_num(nan=1e9), g)
+    assert bool(torch.isfinite(grad).all())
+    torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", [0, 1])
+@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["smooth", "step", "random60", "nan_huge"])
+def test_warp2d_bwd_every_path_matches_plain(cuda, kind, C, path):
+    """Each of dis_warp2d_bwd's kernels (0: the first design, 1: the strip
+    kernel), called through the library, on smooth flow, where neighbouring
+    pixels share corners, and on flows where they do not."""
+    shape = (2, 70, 200)
+    if kind == "smooth":
+        rng = np.random.RandomState(64)
+        yy, xx = np.mgrid[0:70, 0:200].astype(np.float32)
+        flow = np.stack([3.3 + 0.02 * xx + rng.uniform(-0.1, 0.1, (70, 200)),
+                         -2.1 + 0.03 * yy], -1).astype(np.float32)
+        flow = torch.from_numpy(np.stack([flow, -flow]))
+    else:
+        flow = _rough_flow(kind, shape, 65)
+    flow = flow.to(cuda).contiguous()
+    g = _randn(shape + (C,), 66, cuda)
+    grad = torch.full_like(g, float("nan"))
+    err = kernels.library().dis_warp2d_bwd(
+        flow.data_ptr(), g.data_ptr(), grad.data_ptr(), *shape, C, path,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    ref = warp2d_bwd_plain(flow.nan_to_num(nan=1e9), g)
+    torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+
+
+def test_warp2d_bwd_unaligned_flow_takes_the_first_design(cuda):
+    M, H, W, C = 2, 37, 70, 1
+    buf = _randn((M * H * W * 2 + 1,), 62, cuda, scale=5.0)
+    flow = buf[1:].view(M, H, W, 2)
+    assert flow.is_contiguous() and flow.data_ptr() % 8
+    g = _randn((M, H, W, C), 63, cuda)
+    assert kernels.warp2d_bwd_path(C, H, W, flow.data_ptr()) == 0
+    torch.testing.assert_close(kernels.warp2d_bwd(flow, g),
+                               warp2d_bwd_plain(flow, g), rtol=0, atol=1e-5)
 
 
 def _fd_check(kernel_grad, plain_fn, x, g, seed, h=1e-6):

@@ -114,9 +114,10 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     """Imports every module of the port and runs the tiny slice in a process
     where the JAX stack, h5py, cv2, msgpack, matplotlib and the JAX package
     cannot be imported: an eval step, the server, one train step, and the
-    worker for one epoch on in-memory synthetic samples, with a resume;
-    then FuseNet, one DIS-MF train step and one TrackDisparityServer
-    request."""
+    worker for one epoch on in-memory synthetic samples, with a resume; a
+    wire cache written with numpy, read, and trained and tested from by the
+    worker; then FuseNet, one DIS-MF train step and one
+    TrackDisparityServer request."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -170,6 +171,41 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         exp = Path(sys.argv[1]) / "single_frame"
         assert (exp / "net_0001.params").exists()
         mark("worker retrain + resume")
+        import json
+        import numpy as np
+        from depthinspace_tpu_torch.data import (CachedTrackDataset,
+                                                 encode_batch, save_settings)
+        from depthinspace_tpu_torch.data import wire, cache
+        d = Path(sys.argv[1]) / "cached"
+        (d / "wire_cache").mkdir(parents=True)
+        save_settings(d / "settings.pkl", s)
+        names = [f"{i:08d}" for i in range(4)]
+        enc = [encode_batch(make_track_batch(s, tl=4, bs=1, seed=10 + i,
+                                             disp_range=(2.0, 8.0)))
+               for i in range(4)]
+        meta = {"version": 1, "names": names, "fields": {}}
+        for f, k in (("im", "im"), ("ambient", "ambient"),
+                     ("disp", "disp_gt"), ("R", "R"), ("t", "t")):
+            a = np.stack([getattr(e, k)[:, 0] for e in enc])
+            np.save(d / cache.CACHE_DIR_NAME / f"{f}.npy", a)
+            meta["fields"][f] = {"shape": list(a.shape),
+                                 "dtype": a.dtype.name, "missing": []}
+        (d / "wire_cache" / "meta.json").write_text(json.dumps(meta))
+        for n in names:
+            (d / n).mkdir()
+        cb = CachedTrackDataset(d, names, train=False).get_batch([0, 1])
+        assert cb.im.dtype == np.uint16 and cb.im.shape == (4, 2, 32, 24)
+        np.testing.assert_array_equal(cb.disp_gt[:, 1], enc[1].disp_gt[:, 0])
+        assert wire.decode_batch_np(cb).im.dtype == np.float32
+        cfg = RunConfig(data_dir=d, output_dir=d / "out", epochs=1,
+                        train_batch_size=1, max_train_iter=1,
+                        test_batch_size=1, num_workers=1,
+                        flow_source="rigid")
+        SingleFrameWorker(cfg, device="cpu").do("retrain")
+        log = (d / "out" / "single_frame" / "train.log").read_text()
+        assert "using wire cache for train split" in log
+        assert "using wire cache for test split" in log
+        mark("worker from a wire cache written with numpy")
         from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
         from depthinspace_tpu_torch.serve import TrackDisparityServer
         from depthinspace_tpu_torch.train import make_mf_train_step
