@@ -68,13 +68,25 @@ path; every kernel but K5 must run on it):
                f32) on the card and on the CPU from the same weights;
 14. mf worker  MultiFrameWorker on in-memory samples: one epoch, a resume at
                epoch 1, a retest of epoch 0;
-15. wire cache a dataset directory that holds only a wire cache of 8
-               synthetic samples, written with numpy: the SF worker
-               (rigid flow) and the MF worker (flow from the primary) train
-               3 steps and test from it, then retest epoch 0;
+15. wire cache 8 synthetic samples with their stand-in primary written as
+               HDF5 (data/hdf5.py) and built into a wire cache by
+               build_wire_cache: the SF worker (rigid flow) and the MF
+               worker (flow from the primary) train 3 steps and test from
+               the cache, then retest epoch 0;
 16. drift      the SF and the MF train step 5 times from the same state and
                batch, twice: the largest relative differences of the losses
-               and the weights (float atomics, cuDNN).
+               and the weights (float atomics, cuDNN);
+17. pipeline   the staged pipeline through the port's tools and workers on 8
+               samples at 512x432 written as HDF5 and read back equal:
+               presave_flow (rigid); the SF worker (flow.hdf5); presave_disp
+               single_frame, held to DisparityServer.infer; the MF worker
+               (flow.hdf5, bf16, 4 blocks x 32); presave_disp multi_frame;
+               build_cache with primary_disp and pseudo_gt; the DIS-FTSF
+               worker (--use_pseudo_gt True, rigid flow) from the cache and
+               its retest. 3 train steps a worker; each stage's seconds and
+               kernel launches (K1-K4 fwd and bwd in the MF stage, K1-K3 in
+               FTSF's, K3 and K4 fwd in the MF presave); the HDF5 loader's
+               time for one SF batch.
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -985,7 +997,6 @@ def main() -> None:
           f"{rel_g[worst]}")
 
     # -- 9. worker: train, resume, retest ----------------------------------
-    import logging
     from depthinspace_tpu_torch.config import RunConfig
     from depthinspace_tpu_torch.data import SyntheticSource
     from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
@@ -1014,9 +1025,7 @@ def main() -> None:
         again = json.loads((exp / "metrics.json").read_text())["0"]["test"][
             "0"]["loss"]
         rel_r = np.abs(np.array(again) - loss0) / np.abs(loss0)
-        for h in list(logging.root.handlers):
-            h.close()
-            logging.root.removeHandler(h)
+        close_logs()
         print(f"[worker] {names}; epoch 0 test: loss {sum(loss0):.5f}, "
               f"dist2_mean {m0['0']['test']['0']['dist2_mean']:.3f}, of1 "
               f"{m0['0']['test']['0']['of1']:.4f}; resumed at epoch 1; "
@@ -1027,6 +1036,7 @@ def main() -> None:
     mf_counts = mf_phases(settings, dev, smi, model, mf_np)
     wire_cache_phase(settings, dev)
     drift_phase(settings, dev, tb_np, mf_np)
+    staged_pipeline_phase(settings, dev, smi)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1039,60 +1049,65 @@ def main() -> None:
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 
 
-def write_wire_cache(d: Path, settings, n: int, seed: int) -> None:
-    """A dataset directory that holds a wire cache and no HDF5: n in-memory
-    synthetic samples (make_track_batch with the stand-in primary),
-    quantized as the JAX package's build_wire_cache quantizes them
-    (clip(x * scale + 0.5, 0, 65535) as uint16; R and t float32) and written
-    with numpy as its .npy arrays and meta.json, beside settings.pkl and an
-    empty directory for each sample."""
-    from depthinspace_tpu_torch.data import (CACHE_DIR_NAME,
-                                             make_track_batch, save_settings)
-    fields = {"im": ("im", 65535.0), "ambient": ("ambient", 65535.0),
-              "disp": ("disp_gt", 256.0),
-              "primary_disp": ("primary_disp", 256.0), "R": ("R", None),
-              "t": ("t", None)}
-    cache = d / CACHE_DIR_NAME
-    cache.mkdir(parents=True)
-    names = [f"{i:08d}" for i in range(n)]
-    arrays = {}
+def write_hdf5_samples(d: Path, settings, n: int, seed: int,
+                       primary: bool = False) -> dict:
+    """A dataset directory in the reference's schema, written with
+    data/hdf5.py: settings.pkl and n samples, each a frames.hdf5 (im,
+    ambient, grad, disp (4, 1, H, W), R (4, 3, 3), t (4, 3)) of the
+    in-memory synthetic sample make_track_batch(seed + i) and, with
+    ``primary``, a single_frame_disp.hdf5 of its stand-in primary (GT +
+    0.5 px of seeded noise). grad (the reference's Sobel magnitude of the
+    ambient, which no stage of the port reads) is the magnitude of numpy's
+    central differences, clipped to [0, 1]. Returns {sample name: {file:
+    {dataset: array}}} as written."""
+    from depthinspace_tpu_torch.data import (hdf5, make_track_batch,
+                                             save_settings)
+    d.mkdir(parents=True)
+    save_settings(d / "settings.pkl", settings)
+    written = {}
     for i in range(n):
         b = make_track_batch(settings, tl=TL, bs=1, seed=seed + i,
-                             primary_noise=0.5)
-        for f, (key, scale) in fields.items():
-            x = getattr(b, key)[:, 0].astype(np.float32)
-            if scale is not None:
-                x = np.clip(x * scale + 0.5, 0, 65535).astype(np.uint16)
-            if f not in arrays:
-                arrays[f] = np.lib.format.open_memmap(
-                    cache / f"{f}.npy", mode="w+", dtype=x.dtype,
-                    shape=(n,) + x.shape)
-            arrays[f][i] = x
-    meta = {"version": 1, "names": names, "fields": {}}
-    for f, a in arrays.items():
-        a.flush()
-        meta["fields"][f] = {"shape": list(a.shape), "dtype": a.dtype.name,
-                             "missing": []}
-    (cache / "meta.json").write_text(json.dumps(meta))
-    save_settings(d / "settings.pkl", settings)
-    for name in names:
+                             primary_noise=0.5 if primary else None)
+        gy, gx = np.gradient(b.ambient, axis=(-2, -1))
+        files = {"frames.hdf5": {
+            "im": b.im, "ambient": b.ambient,
+            "grad": np.clip(np.hypot(gx, gy), 0, 1).astype(np.float32),
+            "disp": b.disp_gt, "R": b.R[:, 0], "t": b.t[:, 0]}}
+        if primary:
+            files["single_frame_disp.hdf5"] = {"disp": b.primary_disp}
+        name = f"{i:08d}"
         (d / name).mkdir()
+        for fname, datasets in files.items():
+            hdf5.write_hdf5(d / name / fname, datasets)
+        written[name] = files
+    return written
+
+
+def close_logs() -> None:
+    import logging
+    for h in list(logging.root.handlers):
+        h.close()
+        logging.root.removeHandler(h)
 
 
 def wire_cache_phase(settings, dev) -> None:
-    """Phase 15: the SF worker (rigid flow) and the MF worker (flow from the
-    primary, "pred") train for 3 steps and test from a dataset directory
-    that holds only a wire cache, then retest epoch 0."""
-    import logging
+    """Phase 15: 8 synthetic samples written as HDF5 (data/hdf5.py) with
+    their stand-in primary, and the wire cache built from them by the
+    port's build_wire_cache; the SF worker (rigid flow) and the MF worker
+    (flow from the primary, "pred") train for 3 steps and test from the
+    cache, then retest epoch 0."""
     from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.data import BASE_FIELDS, build_wire_cache
     from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
     from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         data = Path(tmp) / "data"
         t0 = time.perf_counter()
-        write_wire_cache(data, settings, 8, SEED + 40)
-        print(f"[wire cache] 8 synthetic samples {H}x{W} written as a wire "
-              f"cache with numpy in {time.perf_counter() - t0:.1f} s")
+        write_hdf5_samples(data, settings, 8, SEED + 40, primary=True)
+        build_wire_cache(data, list(BASE_FIELDS) + ["primary_disp"])
+        print(f"[wire cache] 8 synthetic samples {H}x{W} written as HDF5 "
+              f"and built into a wire cache in "
+              f"{time.perf_counter() - t0:.1f} s")
         for arch, cls, flow in (("single_frame", SingleFrameWorker, "rigid"),
                                 ("multi_frame", MultiFrameWorker, "pred")):
             cfg = RunConfig(data_dir=data, output_dir=Path(tmp) / "out",
@@ -1109,9 +1124,7 @@ def wire_cache_phase(settings, dev) -> None:
             again = json.loads((exp / "metrics.json").read_text())["0"][
                 "test"]["0"]["loss"]
             rel_r = np.abs(np.array(again) - loss0) / np.abs(loss0)
-            for h in list(logging.root.handlers):
-                h.close()
-                logging.root.removeHandler(h)
+            close_logs()
             print(f"[wire cache] {arch} worker, --flow_source {flow}: "
                   f"{len(m0['train']['loss'])} train components after 3 "
                   f"steps, test loss {sum(loss0):.5f}, dist2_mean "
@@ -1123,6 +1136,182 @@ def wire_cache_phase(settings, dev) -> None:
                   f"the {arch} worker did not read the wire cache")
             check(np.isfinite(loss0).all() and rel_r.max() <= 1e-4,
                   f"{arch} retest from the wire cache differs: {rel_r}")
+
+
+K1_K3 = ("census_sad_fwd", "census_sad_bwd", "xwarp_fwd", "xwarp_bwd",
+         "warp2d_fwd", "warp2d_bwd")
+K1_K4 = K1_K3 + ("warp2d_pairs_fwd", "warp2d_pairs_bwd")
+
+
+def staged_pipeline_phase(settings, dev, smi) -> None:
+    """Phase 17: the staged pipeline DIS-SF -> presave -> DIS-MF -> presave
+    -> DIS-FTSF through the port's tools and workers, on 8 samples at
+    512x432 written as HDF5 (data/hdf5.py) and read back; each stage's wall
+    seconds and kernel launches; 3 train steps a stage."""
+    import torch
+    from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.data import (TrackDataset, collate,
+                                             encode_batch, hdf5)
+    from depthinspace_tpu_torch.data.wire import encode_disp
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.serve import DisparityServer
+    from depthinspace_tpu_torch.tools import (build_cache, presave_disp,
+                                              presave_flow)
+    from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
+    from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
+    T0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        data, out = Path(tmp) / "data", Path(tmp) / "out"
+        t0 = time.perf_counter()
+        written = write_hdf5_samples(data, settings, 8, SEED + 60)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, files in written.items():
+            with hdf5.File(data / name / "frames.hdf5") as f:
+                got = {k: np.asarray(f[k]) for k in f.keys()}
+            want = files["frames.hdf5"]
+            check(sorted(got) == sorted(want) and all(
+                got[k].dtype == want[k].dtype and np.array_equal(got[k],
+                                                                 want[k])
+                for k in want), f"frames.hdf5 of {name} reads back other")
+        mb = sum(f.stat().st_size for f in data.rglob("*.hdf5")) / 2 ** 20
+        print(f"[pipeline] 8 samples {H}x{W} written as HDF5 ({mb:.1f} MiB) "
+              f"in {write_s:.1f} s, read back equal in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        stage_s = []
+
+        def stage(name, fn):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            close_logs()
+            stage_s.append(sec)
+            print(f"[pipeline] {name}: {sec:.2f} s; kernel launches "
+                  f"{counts}; {smi}")
+            return counts
+
+        def cfg(arch, flow, **kw):
+            return RunConfig(data_dir=data, output_dir=out, architecture=arch,
+                             epochs=1, train_batch_size=2, test_batch_size=2,
+                             max_train_iter=3, num_workers=4, seed=SEED,
+                             flow_source=flow, **kw)
+
+        def loader_wait(arch) -> str:
+            """The worker's own split of its last epoch: the seconds it
+            waited for the loader (4 threads) and spent in the steps."""
+            log = (out / arch / "train.log").read_text().splitlines()
+            return [ln for ln in log if "timings:" in ln][-1].split(
+                "timings: ")[-1]
+
+        def presave(arch, *argv):
+            presave_disp.main([arch, "--epoch", "0", "--data_dir", str(data),
+                               "--output_dir", str(out), *argv], device=dev)
+
+        stage("presave_flow rigid", lambda: presave_flow.main(
+            ["--provider", "rigid", "--data_dir", str(data)]))
+        for name in written:
+            with hdf5.File(data / name / "flow.hdf5") as f:
+                check(len(f) == 12 and all(
+                    f[k].shape == (1, 2, H, W) and f[k].dtype == np.float32
+                    and np.isfinite(f[k]).all() for k in f.keys()),
+                    f"flow.hdf5 of {name}")
+
+        # the HDF5 loader on one DIS-SF train batch (the 8 samples, read
+        # from the page cache and collated on one thread) and its wire
+        # encoding, with and without flow.hdf5
+        def load(flow: bool) -> str:
+            ds = TrackDataset(settings, sorted(str(p) for p in
+                                               data.glob("0*")),
+                              load_flow=flow)
+            t0 = time.perf_counter()
+            host = collate([ds[i] for i in range(8)])
+            t1 = time.perf_counter()
+            encode_batch(host)
+            return (f"read + collate {(t1 - t0) * 1e3:.1f} ms, encode "
+                    f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+
+        print(f"[pipeline] HDF5 loader, one SF batch (bs 8, tl 4) {H}x{W} "
+              f"from the page cache: with flow: {load(True)}; without "
+              f"flow: {load(False)}")
+
+        stage("SF retrain (--flow_source file)", lambda: SingleFrameWorker(
+            cfg("single_frame", "file"), device=dev).do("retrain"))
+        print(f"[pipeline] SF worker: {loader_wait('single_frame')}")
+        stage("presave_disp single_frame", lambda: presave("single_frame"))
+        # the hand-off against DisparityServer on the same images and
+        # weights: within one u16 unit, unequal on <= 0.1 % of pixels (the
+        # server's calls of 4 images against the tool's batch of 32)
+        srv = DisparityServer.from_net_params(
+            out / "single_frame" / "net_0000.params", imsize=(H, W),
+            max_batch=8, device=dev)
+        diffs = []
+        for name, files in written.items():
+            ref = srv.infer(files["frames.hdf5"]["im"][:, 0])
+            ref_u16 = encode_disp(ref).astype(np.int64)
+            with hdf5.File(data / name / "single_frame_disp.hdf5") as f:
+                got = np.asarray(f["disp"])
+            check(got.shape == (4, 1, H, W), f"SF presave shape {got.shape}")
+            diffs.append(np.abs(np.rint(got[:, 0] * 256.0).astype(np.int64)
+                                - ref_u16))
+        dd = np.stack(diffs)
+        print(f"[pipeline] single_frame_disp.hdf5 vs DisparityServer.infer: "
+              f"max {dd.max()} u16 units, unequal on {np.mean(dd > 0):.5f}")
+        check(dd.max() <= 1 and np.mean(dd > 0) <= 1e-3,
+              "single_frame_disp.hdf5 differs from DisparityServer.infer")
+        del srv
+
+        mf = stage("MF retrain (--flow_source file, bf16 4x32)",
+                   lambda: MultiFrameWorker(
+                       cfg("multi_frame", "file", mf_dtype="bfloat16"),
+                       device=dev).do("retrain"))
+        print(f"[pipeline] MF worker: {loader_wait('multi_frame')}")
+        for k in K1_K4:
+            check(mf.get(k, 0) > 0, f"{k} never launched in the MF stage")
+        mp = stage("presave_disp multi_frame (--flow_source file)",
+                   lambda: presave("multi_frame", "--flow_source", "file"))
+        for k in ("warp2d_fwd", "warp2d_pairs_fwd"):
+            check(mp.get(k, 0) > 0, f"{k} never launched in the MF presave")
+        for name in written:
+            with hdf5.File(data / name / "multi_frame_disp.hdf5") as f:
+                got = np.asarray(f["disp"])
+            check(got.shape == (4, 1, H, W) and np.isfinite(got).all()
+                  and got.min() >= 0 and got.max() <= 128,
+                  f"multi_frame_disp.hdf5 of {name}")
+        stage("build_cache", lambda: build_cache.main(
+            ["--data_dir", str(data), "--fields",
+             "im,ambient,disp,R,t,primary_disp,pseudo_gt"]))
+        ftsf_cfg = cfg("single_frame", "rigid", use_pseudo_gt=True)
+        exp = out / "single_frame"
+        ftsf = stage("FTSF retrain (--use_pseudo_gt True --flow_source "
+                     "rigid, wire cache)", lambda: SingleFrameWorker(
+                         ftsf_cfg, device=dev).do("retrain"))
+        print(f"[pipeline] FTSF worker: {loader_wait('single_frame')}")
+        for k in K1_K3:
+            check(ftsf.get(k, 0) > 0, f"{k} never launched in the FTSF stage")
+        log = (exp / "train.log").read_text()
+        check("using wire cache for train split" in log.split(
+            "Experiment: single_frame")[-1], "FTSF did not read the cache")
+        m0 = json.loads((exp / "metrics.json").read_text())["0"]
+        comps, loss0 = m0["train"]["loss"], m0["test"]["0"]["loss"]
+        check(len(comps) == 10 and np.isfinite(comps).all(),
+              f"FTSF train loss vector {comps}")
+        stage("FTSF retest epoch 0", lambda: SingleFrameWorker(
+            ftsf_cfg, device=dev).do("retest", epoch=0))
+        again = json.loads((exp / "metrics.json").read_text())["0"]["test"][
+            "0"]["loss"]
+        rel = np.abs(np.array(again) - loss0) / np.abs(loss0)
+        print(f"[pipeline] FTSF train components "
+              f"{np.array2string(np.array(comps), precision=5)}; test loss "
+              f"{sum(loss0):.5f}, retest within {rel.max():.2g} relative")
+        check(np.isfinite(loss0).all() and rel.max() <= 1e-4,
+              f"FTSF retest of epoch 0 differs: {rel}")
+    print(f"[pipeline] stages {sum(stage_s):.1f} s; "
+          f"phase {time.perf_counter() - T0:.1f} s; {smi}")
 
 
 def drift_phase(settings, dev, sf_np, mf_np) -> None:
@@ -1242,7 +1431,6 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     """Phases 10-14 (DIS-MF). Returns the launch counts of the MF path
     (phases 10-12)."""
     import copy
-    import logging
     import torch
     from depthinspace_tpu_torch.config import RunConfig
     from depthinspace_tpu_torch.data import (SyntheticSource, batch_to_torch,
@@ -1485,9 +1673,7 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
         again = json.loads((exp / "metrics.json").read_text())["0"]["test"][
             "0"]["loss"]
         rel_r = np.abs(np.array(again) - loss0) / np.abs(loss0)
-        for h in list(logging.root.handlers):
-            h.close()
-            logging.root.removeHandler(h)
+        close_logs()
         print(f"[mf worker] {names}; epoch 0 test: loss {sum(loss0):.5f}, "
               f"dist2_mean {m0['0']['test']['0']['dist2_mean']:.3f}; resumed "
               f"at epoch 1; retest of epoch 0 within {rel_r.max():.2g} "

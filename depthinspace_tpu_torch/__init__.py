@@ -6,10 +6,13 @@ public layouts (images ``(N, H, W)``, warp inputs NHWC, DispNet input
 ``(N, H, W, 2)``), so each function can be held against its counterpart on
 the same numpy inputs.
 
-What is ported so far is DIS-SF and DIS-MF: the disparity servers
-(``serve.DisparityServer``, ``serve.TrackDisparityServer``), the train and
-evaluation steps (``train.steps``) and the workers (``train.single_frame``,
-``train.multi_frame``). Their hot kernels (census-SAD, the pattern warp by
+What is ported so far is DIS-SF, DIS-MF and DIS-FTSF: the disparity
+servers (``serve.DisparityServer``, ``serve.TrackDisparityServer``), the
+train and evaluation steps (``train.steps``), the workers
+(``train.single_frame``, ``train.multi_frame``) and the tools of the staged
+pipeline (``tools.presave_flow``, ``tools.presave_disp``,
+``tools.build_cache``), which read and write the datasets' HDF5 files with
+``data.hdf5`` (numpy alone). Their hot kernels (census-SAD, the pattern warp by
 disparity, the flow warp and the pair-indexed flow warp of FuseNet, forward
 and backward) are hand-written CUDA C++ for Hopper under ``csrc/``. On a
 CUDA tensor each runs its kernel or raises; on a CPU tensor it runs its

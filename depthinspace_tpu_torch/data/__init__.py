@@ -1,6 +1,6 @@
 from .batch import Batch, batch_to_torch
 from .cache import (BASE_FIELDS, CACHE_DIR_NAME, CachedTrackDataset,
-                    has_wire_cache)
+                    build_wire_cache, has_wire_cache)
 from .dataset import (DataLoader, SyntheticSource, SyntheticTrackDataset,
                       TrackDataset, collate)
 from .settings import Settings, load_settings, save_settings

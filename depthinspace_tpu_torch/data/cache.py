@@ -1,5 +1,5 @@
-"""Reader of the wire cache, port of the reading half of
-``depthinspace_tpu/data/cache.py``.
+"""The wire cache, port of ``depthinspace_tpu/data/cache.py``: its builder
+and its reader.
 
 A wire cache holds every sample of a dataset directory already in the 16-bit
 wire encoding (``data/wire.py``), as memmappable ``.npy`` arrays:
@@ -12,11 +12,11 @@ wire encoding (``data/wire.py``), as memmappable ``.npy`` arrays:
     <data_dir>/wire_cache/t.npy            (N, 4, 3)     float32
     [+ primary_disp / pseudo_gt / sgm_disp when built]
 
-It is built from the HDF5 files by the JAX package
-(``python -m depthinspace_tpu.tools.build_cache <data_dir>``, its
-``build_wire_cache``), which this package does not port: building reads
-HDF5. Reading needs numpy only, so a machine without h5py trains and
-retests from a dataset directory that holds a cache.
+``build_wire_cache`` writes it from the samples' HDF5 files (read with
+``data/hdf5.py``) with the JAX package's encoding, sample list and
+meta.json, field by field (``python -m
+depthinspace_tpu_torch.tools.build_cache``); the presave tools refresh the
+field they rewrote.
 
 ``CachedTrackDataset`` serves the same batches as the JAX package's: the
 same sample-name resolution through meta.json, the same refusal of missing
@@ -32,11 +32,88 @@ from typing import Sequence
 
 import numpy as np
 
+from . import hdf5
 from .batch import Batch
+from .wire import encode_disp, encode_unit
 
 CACHE_DIR_NAME = "wire_cache"
 _VERSION = 1
+
+def _as_f32(x: np.ndarray) -> np.ndarray:
+    return x.astype(np.float32)
+
+
+# field -> (source HDF5 file, dataset name, wire encoding of float32 values)
+_FIELDS = {
+    "im": ("frames.hdf5", "im", encode_unit),
+    "ambient": ("frames.hdf5", "ambient", encode_unit),
+    "disp": ("frames.hdf5", "disp", encode_disp),
+    "sgm_disp": ("frames.hdf5", "sgm_disp", encode_disp),
+    "primary_disp": ("single_frame_disp.hdf5", "disp", encode_disp),
+    "pseudo_gt": ("multi_frame_disp.hdf5", "disp", encode_disp),
+    "R": ("frames.hdf5", "R", _as_f32),
+    "t": ("frames.hdf5", "t", _as_f32),
+}
 BASE_FIELDS = ("im", "ambient", "disp", "R", "t")
+
+
+def build_wire_cache(data_dir, fields: Sequence[str] = BASE_FIELDS,
+                     progress: bool = False, force: bool = False) -> Path:
+    """Build or extend the wire cache of ``data_dir`` from the HDF5 files of
+    its samples (the directories ``0*`` that hold frames.hdf5, in sorted
+    order), as the JAX package's ``build_wire_cache``. Idempotent per
+    field: a field already cached for the same sample list is kept unless
+    ``force`` (after a presave rewrote its files); a new sample list starts
+    the cache afresh. A sample without the field's file (a presave over a
+    subset of ``--ranges``) is zero-filled and listed under the field's
+    "missing" in meta.json, which the reader refuses to serve."""
+    data_dir = Path(data_dir)
+    dirs = sorted(p for p in data_dir.glob("0*")
+                  if p.is_dir() and (p / "frames.hdf5").exists())
+    if not dirs:
+        raise FileNotFoundError(f"no sample dirs under {data_dir}")
+    names = [p.name for p in dirs]
+
+    cache = data_dir / CACHE_DIR_NAME
+    cache.mkdir(exist_ok=True)
+    meta_path = cache / "meta.json"
+    meta = {"version": _VERSION, "names": names, "fields": {}}
+    if meta_path.exists():
+        old = json.loads(meta_path.read_text())
+        if old.get("names") == names and old.get("version") == _VERSION:
+            meta = old
+
+    for field in fields:
+        src_file, key, encode = _FIELDS[field]
+        out_path = cache / f"{field}.npy"
+        if field in meta["fields"] and out_path.exists() and not force:
+            continue
+        arr, missing = None, []
+        for i, d in enumerate(dirs):
+            if not (d / src_file).exists():
+                missing.append(d.name)
+                continue
+            with hdf5.File(d / src_file) as f:
+                v = np.asarray(f[key])
+            if v.ndim == 4 and v.shape[1] == 1:      # (4,1,H,W) -> (4,H,W)
+                v = v[:, 0]
+            enc = encode(v.astype(np.float32))
+            if arr is None:
+                arr = np.lib.format.open_memmap(
+                    out_path, mode="w+", dtype=enc.dtype,
+                    shape=(len(dirs),) + enc.shape)
+            arr[i] = enc
+            if progress and i % 256 == 0:
+                print(f"cache {field}: {i}/{len(dirs)}", flush=True)
+        if arr is None:
+            raise FileNotFoundError(
+                f"no sample has {src_file} (field {field!r})")
+        arr.flush()
+        meta["fields"][field] = {"shape": list(arr.shape),
+                                 "dtype": arr.dtype.name,
+                                 "missing": missing}
+        meta_path.write_text(json.dumps(meta))
+    return cache
 
 
 def has_wire_cache(data_dir, fields: Sequence[str] = BASE_FIELDS) -> bool:

@@ -11,10 +11,10 @@
   <DATA_DIR>/<sample>/multi_frame_disp.hdf5   disp (4,1,H,W)  (pseudo GT)
 
 with the same per-index RNG (a training sample takes a random permutation
-of its 4 frames). ``h5py`` is imported only inside ``__getitem__``, so the
-rest of the package runs where it is not installed. Host augmentation
-(``data/augment.py``, cv2) is not ported: the device augmentation of
-``train/objective.py`` takes its place.
+of its 4 frames). The files are read with ``data/hdf5.py`` (numpy alone),
+which maps each dataset and reads only the frames a sample takes. Host
+augmentation (``data/augment.py``, cv2) is not ported: the device
+augmentation of ``train/objective.py`` takes its place.
 
 ``SyntheticTrackDataset`` serves in-memory samples made by
 ``data/synthetic.py`` with the same ``__getitem__`` dict, for runs without a
@@ -31,6 +31,7 @@ from typing import Sequence
 
 import numpy as np
 
+from . import hdf5
 from .batch import Batch
 from .settings import Settings
 from .synthetic import make_track_batch
@@ -70,11 +71,6 @@ class TrackDataset:
         return len(self.sample_paths)
 
     def __getitem__(self, idx: int) -> dict:
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("TrackDataset reads HDF5 files and needs h5py, "
-                              "which is not installed") from e
         path = self.sample_paths[idx]
         tl = self.track_length
         track_ind = _track_indices(self, idx)
@@ -84,7 +80,7 @@ class TrackDataset:
                 np.float32)
 
         ret: dict = {"id": idx}
-        with h5py.File(os.path.join(path, "frames.hdf5"), "r") as f:
+        with hdf5.File(os.path.join(path, "frames.hdf5")) as f:
             for key, name in (("im", "im"), ("ambient", "ambient"),
                               ("disp", "disp")):
                 ret[key] = frames(f, name)
@@ -97,7 +93,7 @@ class TrackDataset:
         if self.load_flow:
             H, W = ret["im"].shape[-2:]
             flow = np.zeros((tl, tl, H, W, 2), np.float32)
-            with h5py.File(os.path.join(path, "flow.hdf5"), "r") as f:
+            with hdf5.File(os.path.join(path, "flow.hdf5")) as f:
                 for i0, t0 in enumerate(track_ind):
                     for i1, t1 in enumerate(track_ind):
                         if t0 != t1:
@@ -105,12 +101,12 @@ class TrackDataset:
                             flow[i0, i1] = np.moveaxis(fl[0], 0, -1)
             ret["flow"] = flow
         if self.load_primary:
-            with h5py.File(os.path.join(path, "single_frame_disp.hdf5"),
-                           "r") as f:
+            with hdf5.File(os.path.join(path,
+                                        "single_frame_disp.hdf5")) as f:
                 ret["primary_disp"] = frames(f, "disp")
         if self.load_pseudo_gt:
-            with h5py.File(os.path.join(path, "multi_frame_disp.hdf5"),
-                           "r") as f:
+            with hdf5.File(os.path.join(path,
+                                        "multi_frame_disp.hdf5")) as f:
                 ret["pseudo_gt"] = frames(f, "disp")
         return ret
 

@@ -32,6 +32,28 @@ _DISP_SCALE = 256.0
 _FLOW_SCALE = 256.0
 
 
+def encode_unit(x: np.ndarray) -> np.ndarray:
+    """A [0, 1] float32 image as uint16 x65535."""
+    return np.clip(x * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
+
+
+def encode_disp(x: np.ndarray) -> np.ndarray:
+    """A float32 disparity in pixels as uint16 x256."""
+    return np.clip(x * _DISP_SCALE + 0.5, 0, 65535).astype(np.uint16)
+
+
+def encode_flow(x: np.ndarray) -> np.ndarray:
+    """A float32 flow in pixels as int16 x256."""
+    return np.clip(np.rint(x * _FLOW_SCALE), -32768, 32767).astype(np.int16)
+
+
+def to_u16_disp(disp: torch.Tensor) -> torch.Tensor:
+    """On the device: a float32 disparity as uint16 x256, as
+    :func:`encode_disp` rounds it."""
+    return torch.clamp(disp * _DISP_SCALE + 0.5, 0, 65535).to(
+        torch.int32).to(torch.uint16)
+
+
 def encode_batch(batch: Batch) -> Batch:
     """Host side (numpy): quantize the float32 fields to 16 bits, bit for
     bit as the JAX package's ``encode_batch``; other fields pass through."""
@@ -41,12 +63,11 @@ def encode_batch(batch: Batch) -> Batch:
         if v is None or v.dtype != np.float32:
             out[k] = v
         elif k in _UNIT:
-            out[k] = np.clip(v * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
+            out[k] = encode_unit(v)
         elif k in _DISP:
-            out[k] = np.clip(v * _DISP_SCALE + 0.5, 0, 65535).astype(np.uint16)
+            out[k] = encode_disp(v)
         elif k == "flow":
-            out[k] = np.clip(np.rint(v * _FLOW_SCALE), -32768, 32767).astype(
-                np.int16)
+            out[k] = encode_flow(v)
         else:
             out[k] = v
     return Batch(**out)
@@ -88,16 +109,19 @@ def decode_batch_np(batch: Batch) -> Batch:
     return Batch(**out)
 
 
+def decode_field(name: str, v: torch.Tensor) -> torch.Tensor:
+    """On ``v``'s device (torch): field ``name`` back to float32 if it is
+    16-bit, multiplied in float32 by the same factor as
+    :func:`decode_batch_np`, so the values are the same bits; else ``v``."""
+    s = _scale(name, str(v.dtype).removeprefix("torch."))
+    return v if s is None else v.to(torch.float32) * s
+
+
 def decode_batch(batch: Batch) -> Batch:
-    """On the batch's device (torch): the 16-bit fields back to float32,
-    multiplied in float32 by the same factors as :func:`decode_batch_np`,
-    so the values are the same bits; float32 fields pass through."""
+    """On the batch's device (torch): :func:`decode_field` of every field;
+    float32 fields pass through."""
     out = {}
     for k in Batch._fields:
         v = getattr(batch, k)
-        if v is not None:
-            s = _scale(k, str(v.dtype).removeprefix("torch."))
-            if s is not None:
-                v = v.to(torch.float32) * s
-        out[k] = v
+        out[k] = None if v is None else decode_field(k, v)
     return Batch(**out)

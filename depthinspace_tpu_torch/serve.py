@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .data.wire import decode_field, encode_flow, encode_unit, to_u16_disp
 from .device import resolve_device
 from .models import (DispNet, FuseNet, dispnet_state_dict_from_flax,
                      fusenet_state_dict_from_flax)
@@ -34,8 +35,32 @@ def _pad_to(x: np.ndarray, b: int) -> np.ndarray:
     return np.concatenate([x, np.repeat(x[-1:], b - x.shape[0], axis=0)])
 
 
-def _encode_u16(x: np.ndarray) -> np.ndarray:
-    return np.clip(x * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
+def lcn_input(im: torch.Tensor, radius: int = 5) -> torch.Tensor:
+    """The networks' input: images (..., H, W) float32 in [0, 1] ->
+    (..., H, W, 2), their LCN beside them."""
+    H, W = im.shape[-2:]
+    im_lcn, _ = lcn(im.reshape(-1, H, W), radius, 0.05)
+    return torch.stack([im_lcn.reshape(im.shape), im], dim=-1)
+
+
+def sf_forward(model: DispNet, ir: torch.Tensor) -> torch.Tensor:
+    """DIS-SF on :func:`lcn_input`'s (..., H, W, 2) -> the disparity
+    (..., H, W) float32."""
+    H, W = ir.shape[-3:-1]
+    disp = model(ir.reshape(-1, H, W, 2))[0]
+    return disp.reshape(ir.shape[:-1])
+
+
+def mf_forward(model: FuseNet, ir, amb, primary, R, t, flow, focal: float,
+               baseline: float) -> torch.Tensor:
+    """DIS-MF on track-major device tensors: ir (tl, n, H, W, 2) from
+    :func:`lcn_input`, amb and the primary disparity (tl, n, H, W) float32,
+    R (tl, n, 3, 3), t (tl, n, 3), flow (tl, tl, n, H, W, 2) in pixels ->
+    the refined disparity (tl, n, H, W) float32."""
+    pd = primary[..., None]
+    out = model(ir, amb[..., None], pd, disp_to_depth(pd, focal, baseline),
+                R, t, flow)
+    return out[..., 0]
 
 
 class DisparityServer:
@@ -83,10 +108,9 @@ class DisparityServer:
 
     @torch.inference_mode()
     def _run(self, images: np.ndarray) -> torch.Tensor:
-        im = torch.from_numpy(_encode_u16(images)).to(self.device).to(torch.float32) \
-            * (1.0 / 65535.0)
-        im_lcn, _ = lcn(im, self.lcn_radius, 0.05)
-        return self.model(torch.stack([im_lcn, im], dim=-1))[0][..., 0]
+        im = decode_field("im", torch.from_numpy(encode_unit(images)).to(
+            self.device))
+        return sf_forward(self.model, lcn_input(im, self.lcn_radius))
 
     def infer(self, images: np.ndarray) -> np.ndarray:
         """images (n, H, W) float32 in [0, 1] -> disparities (n, H, W)."""
@@ -172,19 +196,14 @@ class TrackDisparityServer:
         """Track-major device arrays: im/amb (tl, n, H, W) u16; R (tl, n, 3,
         3); t (tl, n, 3); flow (tl, tl, n, H, W, 2) int16 x 256. Returns the
         disparity (tl, n, H, W) as u16 x 256."""
-        tl, n, H, W = im_u16.shape
         to = lambda x: torch.from_numpy(x).to(self.device)
-        im = to(im_u16).to(torch.float32) * (1.0 / 65535.0)
-        amb = to(amb_u16).to(torch.float32) * (1.0 / 65535.0)
-        flow = to(flow_i16).to(torch.float32) * (1.0 / 256.0)
-        im_lcn, _ = lcn(im.reshape(tl * n, H, W), self.lcn_radius, 0.05)
-        ir = torch.stack([im_lcn, im.reshape(tl * n, H, W)], dim=-1)
-        pd = self.sf(ir)[0].reshape(tl, n, H, W, 1)
-        pdepth = disp_to_depth(pd, self.focal, self.baseline)
-        out = self.mf(ir.reshape(tl, n, H, W, 2), amb[..., None], pd, pdepth,
-                      to(R), to(t), flow)
-        return torch.clamp(out[..., 0] * 256.0 + 0.5, 0, 65535).to(
-            torch.int32).to(torch.uint16)
+        ir = lcn_input(decode_field("im", to(im_u16)), self.lcn_radius)
+        primary = sf_forward(self.sf, ir)
+        out = mf_forward(self.mf, ir, decode_field("ambient", to(amb_u16)),
+                         primary, to(R), to(t),
+                         decode_field("flow", to(flow_i16)), self.focal,
+                         self.baseline)
+        return to_u16_disp(out)
 
     def infer(self, im, ambient, R, t, flow=None) -> np.ndarray:
         """im/ambient (n, tl, H, W) float32 in [0, 1]; R (n, tl, 3, 3);
@@ -206,10 +225,9 @@ class TrackDisparityServer:
             im_c, amb_c, R_c, t_c, fl_c = (_pad_to(a, b) for a in chunk)
             # the request is track-major per item (n, tl, ...); the device
             # layout is tl-major
-            fl_i16 = np.clip(np.rint(np.moveaxis(fl_c, 0, 2) * 256.0),
-                             -32768, 32767).astype(np.int16)
-            out = self._run(_encode_u16(np.moveaxis(im_c, 0, 1)),
-                            _encode_u16(np.moveaxis(amb_c, 0, 1)),
+            fl_i16 = encode_flow(np.moveaxis(fl_c, 0, 2))
+            out = self._run(encode_unit(np.moveaxis(im_c, 0, 1)),
+                            encode_unit(np.moveaxis(amb_c, 0, 1)),
                             np.ascontiguousarray(np.moveaxis(R_c, 0, 1)),
                             np.ascontiguousarray(np.moveaxis(t_c, 0, 1)),
                             fl_i16)

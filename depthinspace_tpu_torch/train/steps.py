@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..data.batch import Batch
-from ..data.wire import decode_batch
+from ..data.wire import decode_batch, to_u16_disp
 from ..ops import disp_to_depth
 from .objective import (LossContext, augment_batch_device, draw_augment,
                         mf_losses, prepare_batch, preprocess_images, sf_losses)
@@ -111,10 +111,7 @@ def _make_eval_step(architecture: str, model: torch.nn.Module,
         batch = prepare_batch(decode_batch(batch), ctx, multi_frame)
         outs = forward(model, batch, ctx)
         _, comps = losses(outs, batch, ctx, train=False, epoch=epoch)
-        disp = take_disp0(outs, batch)
-        disp_u16 = torch.clamp(disp * 256.0 + 0.5, 0, 65535).to(
-            torch.int32).to(torch.uint16)
-        return disp_u16, comps
+        return to_u16_disp(take_disp0(outs, batch)), comps
 
     return eval_step
 

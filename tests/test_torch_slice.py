@@ -1,7 +1,8 @@
 """The ported slice end to end against the JAX package on the CPU: the DIS-SF
 evaluation step at 64x56, tl=4, bs=1 (flow from the batch and from the
 prediction), the disparity server on a ragged request, and the port
-running with jax, flax, h5py, cv2 and the JAX package absent."""
+running, reading and writing HDF5 with jax, flax, h5py, cv2 and the JAX
+package absent."""
 import os
 import subprocess
 import sys
@@ -116,8 +117,9 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     cannot be imported: an eval step, the server, one train step, and the
     worker for one epoch on in-memory synthetic samples, with a resume; a
     wire cache written with numpy, read, and trained and tested from by the
-    worker; then FuseNet, one DIS-MF train step and one
-    TrackDisparityServer request."""
+    worker; a dataset directory written through data/hdf5.py, read back by
+    TrackDataset, and presave_disp single_frame over it; then FuseNet, one
+    DIS-MF train step and one TrackDisparityServer request."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -206,6 +208,37 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         assert "using wire cache for train split" in log
         assert "using wire cache for test split" in log
         mark("worker from a wire cache written with numpy")
+        from depthinspace_tpu_torch.data import TrackDataset, hdf5
+        from depthinspace_tpu_torch.tools import presave_disp
+        from depthinspace_tpu_torch.train.checkpoint import save_net_params
+        hd = Path(sys.argv[1]) / "hdf5"
+        hd.mkdir()
+        save_settings(hd / "settings.pkl", s)
+        written = []
+        for i in range(2):
+            b = make_track_batch(s, tl=4, bs=1, seed=20 + i,
+                                 disp_range=(2.0, 8.0))
+            (hd / f"{i:08d}").mkdir()
+            hdf5.write_hdf5(hd / f"{i:08d}" / "frames.hdf5", {
+                "im": b.im, "ambient": b.ambient, "disp": b.disp_gt,
+                "R": b.R[:, 0], "t": b.t[:, 0]})
+            written.append(b)
+        ds = TrackDataset(s, sorted(str(p) for p in hd.glob("0*")),
+                          train=False)
+        for i, b in enumerate(written):
+            np.testing.assert_array_equal(ds[i]["im"], b.im[:, 0])
+            np.testing.assert_array_equal(ds[i]["R"], b.R[:, 0])
+        mark("HDF5 written and read with numpy")
+        (hd / "out" / "single_frame").mkdir(parents=True)
+        save_net_params(hd / "out" / "single_frame", 0, net)
+        presave_disp.main(["single_frame", "--epoch", "0", "--data_dir",
+                           str(hd), "--output_dir", str(hd / "out")],
+                          device="cpu")
+        for i in range(2):
+            with hdf5.File(hd / f"{i:08d}" / "single_frame_disp.hdf5") as f:
+                sf = np.asarray(f["disp"])
+            assert sf.shape == (4, 1, 32, 24) and np.isfinite(sf).all()
+        mark("presave_disp single_frame")
         from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
         from depthinspace_tpu_torch.serve import TrackDisparityServer
         from depthinspace_tpu_torch.train import make_mf_train_step
