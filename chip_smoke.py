@@ -87,6 +87,20 @@ path; every kernel but K5 must run on it):
                kernel launches (K1-K4 fwd and bwd in the MF stage, K1-K3 in
                FTSF's, K3 and K4 fwd in the MF presave); the HDF5 loader's
                time for one SF batch.
+18. learned flow  output/flownet.msgpack loaded by the port: FlowNet on
+               the card against the CPU at 512x432 (2 pairs, 1e-3 px); its
+               forward on a 4-track bucket (48 pairs) with the encoder's and
+               the correlation's share; TrackDisparityServer without flow
+               (3- and 4-track requests, tracks/s beside the caller-flow
+               rate, 1 K3 and 8 K4 launches a bucket, its run-to-run
+               difference, and equal to mf_forward on flow_all_pairs' flow
+               on deterministic cuDNN algorithms); the SF (bs 8) and MF (4
+               tracks, bf16)
+               train steps with --flow_source net (ms/step, the same launches
+               as with file flow); presave_flow --provider learned and
+               presave_disp multi_frame --flow_source net on phase 17's
+               samples; 20 train_flow steps at crop 256x224 (finite loss,
+               the saved file reloads, steps/s).
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -1036,7 +1050,9 @@ def main() -> None:
     mf_counts = mf_phases(settings, dev, smi, model, mf_np)
     wire_cache_phase(settings, dev)
     drift_phase(settings, dev, tb_np, mf_np)
-    staged_pipeline_phase(settings, dev, smi)
+    staged_pipeline_phase(settings, dev, smi, then=lambda data, out:
+                          learned_flow_phase(settings, dev, smi, model, tb_np,
+                                             mf_np, data, out))
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1143,11 +1159,12 @@ K1_K3 = ("census_sad_fwd", "census_sad_bwd", "xwarp_fwd", "xwarp_bwd",
 K1_K4 = K1_K3 + ("warp2d_pairs_fwd", "warp2d_pairs_bwd")
 
 
-def staged_pipeline_phase(settings, dev, smi) -> None:
+def staged_pipeline_phase(settings, dev, smi, then=None) -> None:
     """Phase 17: the staged pipeline DIS-SF -> presave -> DIS-MF -> presave
     -> DIS-FTSF through the port's tools and workers, on 8 samples at
     512x432 written as HDF5 (data/hdf5.py) and read back; each stage's wall
-    seconds and kernel launches; 3 train steps a stage."""
+    seconds and kernel launches; 3 train steps a stage. ``then(data, out)``
+    runs last, on the phase's dataset and output directories."""
     import torch
     from depthinspace_tpu_torch.config import RunConfig
     from depthinspace_tpu_torch.data import (TrackDataset, collate,
@@ -1310,8 +1327,311 @@ def staged_pipeline_phase(settings, dev, smi) -> None:
               f"{sum(loss0):.5f}, retest within {rel.max():.2g} relative")
         check(np.isfinite(loss0).all() and rel.max() <= 1e-4,
               f"FTSF retest of epoch 0 differs: {rel}")
-    print(f"[pipeline] stages {sum(stage_s):.1f} s; "
-          f"phase {time.perf_counter() - T0:.1f} s; {smi}")
+        print(f"[pipeline] stages {sum(stage_s):.1f} s; "
+              f"phase {time.perf_counter() - T0:.1f} s; {smi}")
+        if then is not None:
+            then(data, out)
+
+
+FLOWNET = ROOT / "output" / "flownet.msgpack"
+FLOW_CROP = (256, 224)                    # train_flow's default crop
+
+
+def conv_flops(net, *args) -> float:
+    """The FLOPs (2 per multiply-add) of every convolution of one
+    ``net(*args)`` call, counted from the shapes by forward hooks."""
+    import torch
+    total = [0.0]
+
+    def hook(mod, _, out):
+        total[0] += 2.0 * mod.weight[0].numel() * out.numel()
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            net(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
+                       out) -> None:
+    """Phase 18: the learned flow provider (output/flownet.msgpack, loaded
+    by the port): FlowNet on the card against the CPU; its forward for a
+    4-track bucket (48 pairs) with the encoder's and the correlation's
+    share; TrackDisparityServer without flow; the SF and MF train steps
+    with --flow_source net; presave_flow --provider learned and presave_disp
+    multi_frame --flow_source net on phase 17's samples (``data``, ``out``);
+    20 train_flow steps at crop 256x224."""
+    import contextlib
+    import io
+    import torch
+    from depthinspace_tpu_torch.data import batch_to_torch
+    from depthinspace_tpu_torch.models import (FuseNet, flow_all_pairs,
+                                               init_fusenet_)
+    from depthinspace_tpu_torch.models.flownet import _correlation_nchw
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.serve import (TrackDisparityServer,
+                                              lcn_input, mf_forward,
+                                              sf_forward)
+    from depthinspace_tpu_torch.data.wire import (decode_field, encode_unit,
+                                                  to_u16_disp)
+    from depthinspace_tpu_torch.tools import (presave_disp, presave_flow,
+                                              train_flow)
+    from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
+                                              make_mf_train_step,
+                                              make_sf_train_step)
+    T0 = time.perf_counter()
+    net_cpu, ch = train_flow.load_flow_params(FLOWNET)
+    net = copy.deepcopy(net_cpu).to(dev)
+    check(ch == 2, f"flownet.msgpack has {ch} input channels, expected 2")
+
+    # -- 18a. FlowNet card vs CPU at 512x432, 2 pairs -----------------------
+    x = np.stack([mf_np.ambient, mf_np.im], -1)           # (tl, n, H, W, 2)
+    a, b = x[0, :2], x[1, :2]
+    with torch.inference_mode():
+        card_out = [f.cpu() for f in net(torch.from_numpy(a).to(dev),
+                                         torch.from_numpy(b).to(dev))]
+        t0 = time.perf_counter()
+        cpu_out = net_cpu(torch.from_numpy(a), torch.from_numpy(b))
+        cpu_s = time.perf_counter() - t0
+    errs = [float((c - r).abs().max()) for c, r in zip(card_out, cpu_out)]
+    print(f"[flownet] card vs CPU, 2 pairs {H}x{W}, output/flownet.msgpack: "
+          f"max |diff| by level (1/16, 1/8, 1/4, 1) "
+          f"{', '.join(f'{e:.3g}' for e in errs)} px; largest |flow| "
+          f"{float(cpu_out[-1].abs().max()):.3f} px; cpu forward {cpu_s:.1f} "
+          f"s; TF32 off")
+    # float32 convolutions summed in other orders (the port's CPU forward
+    # is held to JAX within 1e-3 px; tests/test_torch_flownet.py)
+    check(max(errs) <= 1e-3, f"FlowNet card vs CPU differs: {errs} px")
+
+    # -- 18b. FlowNet forward on a 4-track bucket (48 pairs) ----------------
+    im_d = torch.as_tensor(mf_np.im, device=dev)            # (tl, 4, H, W)
+    amb_d = torch.as_tensor(mf_np.ambient, device=dev)
+    fwd_ms = cuda_ms(lambda: flow_all_pairs(net, im_d, amb_d), reps=5,
+                     warmup=1)
+    frames = torch.stack([amb_d, im_d], -1).reshape(TL * MF_TRACKS, H, W, 2)
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: net.encode(frames), reps=5, warmup=1)
+        feats = net.encode(frames)
+        pl = [(i, j) for i in range(TL) for j in range(TL) if i != j]
+        src = [i * MF_TRACKS + k for i, _ in pl for k in range(MF_TRACKS)]
+        dst = [j * MF_TRACKS + k for _, j in pl for k in range(MF_TRACKS)]
+        pairs = [(f[src], f[dst]) for f in feats[1:]]   # 1/4, 1/8, 1/16
+        corr_ms = [cuda_ms(lambda p=p: _correlation_nchw(*p, 4), reps=5,
+                           warmup=1) for p in pairs]
+    n_pairs = TL * (TL - 1) * MF_TRACKS
+    flops = conv_flops(net, torch.from_numpy(a[:1]).to(dev),
+                       torch.from_numpy(b[:1]).to(dev))
+    enc_flops = conv_flops(net.encoder, frames[:1].permute(0, 3, 1, 2))
+    bucket_flops = (flops - 2 * enc_flops) * n_pairs + enc_flops * TL * \
+        MF_TRACKS
+    bnd, by = bound_ms(0.0, bucket_flops)
+    print(f"[flownet] flow_all_pairs, 4-track bucket ({n_pairs} pairs, "
+          f"{TL * MF_TRACKS} frames encoded once) {H}x{W} f32: {fwd_ms:.2f} "
+          f"ms (median of 5); encoder {enc_ms:.2f} ms ({enc_ms / fwd_ms:.1%}"
+          f"); correlation at 1/4, 1/8, 1/16 "
+          f"{', '.join(f'{c:.2f}' for c in corr_ms)} ms, together "
+          f"{sum(corr_ms):.2f} ms ({sum(corr_ms) / fwd_ms:.1%}); "
+          f"convolutions {bucket_flops / 1e9:.1f} GFLOP ({flops / 1e9:.2f} a "
+          f"pair alone), f32 bound {bnd:.2f} ms ({by}); {smi}")
+    del feats, pairs
+
+    # -- 18c. TrackDisparityServer without flow ----------------------------
+    mf16 = init_fusenet_(FuseNet((H, W), settings.K, TL,
+                                 compute_dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED + 4))
+    srv = TrackDisparityServer(sf_model, mf16, net, imsize=(H, W),
+                               K=settings.K, max_tracks=MF_TRACKS, device=dev)
+    mv = lambda v: np.ascontiguousarray(np.moveaxis(v, 1, 0))
+    req = (mv(mf_np.im), mv(mf_np.ambient), mv(mf_np.R), mv(mf_np.t))
+    flow_req = np.ascontiguousarray(np.moveaxis(mf_np.flow, 2, 0))
+    got3 = srv.infer(*(v[:3] for v in req))
+    check(got3.shape == (3, TL, H, W) and np.isfinite(got3).all()
+          and got3.min() >= 0 and got3.max() <= 128,
+          f"serve with learned flow: {got3.shape}, {got3.min()} .. "
+          f"{got3.max()}")
+    kernels.reset_launches()
+    got = srv.infer(*req)
+    per_bucket = {k: v for k, v in kernels.launches.items() if v}
+    check(per_bucket == {"warp2d_fwd": 1, "warp2d_pairs_fwd": 8},
+          f"serve with learned flow: launches {per_bucket}")
+    # run to run on the default cuDNN algorithms: DispNet's transposed
+    # convolutions may sum in another order each call, and FuseNet turns the
+    # primary's ulps into other neighbour choices (measured, not checked)
+    again = srv.infer(*req)
+    print(f"[flow serve] the same 4-track request twice, default cuDNN "
+          f"algorithms: max |diff| {np.abs(again - got).max():.4f} px, "
+          f"unequal on {np.mean(again != got):.4f} of pixels")
+    # the composition is held bit for bit on deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    got = srv.infer(*req)
+    with torch.inference_mode():
+        # the server's arrays, strides included (a strided input can make
+        # cuDNN pick another algorithm, and FuseNet turns ulps into choices)
+        to = lambda v: torch.from_numpy(v).to(dev)
+        im_w = decode_field("im", to(encode_unit(np.moveaxis(req[0], 0, 1))))
+        amb_w = decode_field("ambient",
+                             to(encode_unit(np.moveaxis(req[1], 0, 1))))
+        ir = lcn_input(im_w)
+        ref = mf_forward(mf16, ir, amb_w, sf_forward(sf_model, ir),
+                         to(mf_np.R), to(mf_np.t),
+                         flow_all_pairs(net, im_w, amb_w), srv.focal,
+                         srv.baseline)
+        ref = to_u16_disp(ref).cpu().numpy().astype(np.int64)
+    torch.backends.cudnn.deterministic = False
+    dd = np.abs(np.rint(np.moveaxis(got, 0, 1) * 256).astype(np.int64) - ref)
+    print(f"[flow serve] infer(flow=None) vs mf_forward on flow_all_pairs' "
+          f"flow, deterministic cuDNN: max {dd.max()} u16 units, unequal on "
+          f"{np.mean(dd > 0):.6f}; launches a bucket {per_bucket}")
+    check(dd.max() == 0,
+          f"serve with learned flow differs from its composition: {dd.max()}")
+    rates = {}
+    for label, extra in (("learned flow", ()), ("caller flow", (flow_req,))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            srv.infer(*(v[:3] for v in req + extra))
+        r3 = 3 * 5 / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            srv.infer(*(req + extra))
+        s4 = (time.perf_counter() - t0) / 5
+        rates[label] = (r3, MF_TRACKS / s4, s4 * 1e3)
+    print("[flow serve] " + "; ".join(
+        f"{k}: {r3:.2f} tracks/s on 3-track requests, {r4:.2f} on "
+        f"{MF_TRACKS}-track ({ms:.1f} ms each)" for k, (r3, r4, ms)
+        in rates.items()) + f"; FuseNet bf16, DispNet and FlowNet f32; {smi}")
+    del srv, mf16
+    torch.cuda.empty_cache()
+
+    # -- 18d. SF and MF train steps with --flow_source net ------------------
+    ctx = make_loss_context(settings, TL, device=dev, flow_source="net",
+                            flow_net=net)
+    for arch, np_batch, per_step in (("single_frame", sf_np, PER_TRAIN_STEP),
+                                     ("multi_frame", mf_np, PER_MF_STEP)):
+        if arch == "single_frame":
+            from depthinspace_tpu_torch.models import DispNet, init_dispnet_
+            m = init_dispnet_(DispNet(), torch.Generator().manual_seed(SEED))
+            make = make_sf_train_step
+        else:
+            m = init_fusenet_(FuseNet((H, W), settings.K, TL,
+                                      compute_dtype=torch.bfloat16),
+                              torch.Generator().manual_seed(SEED + 5))
+            make = make_mf_train_step
+        state = TrainState.create(m, 1e-4, seed=SEED, device=dev)
+        step = make(m, ctx, state)
+        batch = batch_to_torch(np_batch._replace(flow=None), dev)
+        kernels.reset_launches()
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comps = step(batch).cpu().numpy()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(comps).all(),
+                  f"{arch} train with net flow: components {comps}")
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        want = {k: 6 * v for k, v in per_step.items() if v}
+        check(counts == want, f"{arch} train with net flow: launches "
+              f"{counts}, expected {want}")
+        bs = np_batch.im.shape[1]
+        print(f"[flow train] {arch} step, --flow_source net ({bs} tracks x "
+              f"{TL} frames, {TL * (TL - 1) * bs} FlowNet pairs a step, "
+              f"{'f32' if arch == 'single_frame' else 'bf16'}): "
+              f"{np.median(times[1:]):.1f} ms/step (median of 5 after a "
+              f"warm step; min {min(times[1:]):.1f}, max "
+              f"{max(times[1:]):.1f}); launches as with file flow "
+              f"({per_step} a step); components "
+              f"{np.array2string(comps, precision=5)}; {smi}")
+        del state, step, m, batch
+        torch.cuda.empty_cache()
+
+    # -- 18e. the tools on phase 17's samples --------------------------------
+    def tool(label, fn):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        print(f"[flow tools] {label}: {time.perf_counter() - t0:.2f} s; "
+              f"kernel launches {counts}")
+        return counts
+
+    tool("presave_flow --provider learned (8 samples, 12 pairs each)",
+         lambda: presave_flow.main(["--provider", "learned", "--data_dir",
+                                    str(data), "--flow_params",
+                                    str(FLOWNET)], device=dev))
+    from depthinspace_tpu_torch.data import hdf5
+    for sample in sorted(data.glob("0*")):
+        with hdf5.File(sample / "flow.hdf5") as f:
+            check(len(f) == 12 and all(
+                f[k].shape == (1, 2, H, W) and f[k].dtype == np.float32
+                and np.isfinite(f[k]).all() for k in f.keys()),
+                f"learned flow.hdf5 of {sample.name}")
+    mp = tool("presave_disp multi_frame --flow_source net (2 batches of 4)",
+              lambda: presave_disp.main(
+                  ["multi_frame", "--epoch", "0", "--flow_source", "net",
+                   "--flow_params", str(FLOWNET), "--data_dir", str(data),
+                   "--output_dir", str(out)], device=dev))
+    check(mp == {"warp2d_fwd": 2, "warp2d_pairs_fwd": 16},
+          f"presave_disp net: launches {mp}")
+    for sample in sorted(data.glob("0*")):
+        with hdf5.File(sample / "multi_frame_disp.hdf5") as f:
+            got = np.asarray(f["disp"])
+        check(got.shape == (4, 1, H, W) and np.isfinite(got).all()
+              and got.min() >= 0 and got.max() <= 128,
+              f"multi_frame_disp.hdf5 (net flow) of {sample.name}")
+
+    # -- 18f. train_flow: 20 steps at crop 256x224 ---------------------------
+    flow_out = out / "flownet_trained.msgpack"
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train_flow.main(["--data_dir", str(data), "--out", str(flow_out),
+                         "--steps", "20", "--batch_size", "8", "--crop",
+                         *map(str, FLOW_CROP),
+                         "--val_samples", "2", "--pool_size", "48",
+                         "--report_every", "1", "--val_every", "0",
+                         "--pool_cache", str(out / "pool.npz")], device=dev)
+    main_s = time.perf_counter() - t0
+    lines = log.getvalue().splitlines()
+    losses = [float(ln.split("loss")[1].split()[0]) for ln in lines
+              if ln.startswith("step")]
+    check(len(losses) == 20 and np.isfinite(losses).all(),
+          f"train_flow losses {losses}")
+    reloaded, rch = train_flow.load_flow_params(flow_out)
+    with torch.inference_mode():
+        fl = reloaded.to(dev)(torch.from_numpy(a[:1]).to(dev),
+                              torch.from_numpy(b[:1]).to(dev))[-1]
+    check(rch == 2 and bool(torch.isfinite(fl).all()),
+          "the saved FlowNet does not reload")
+    pool = np.load(out / "pool.npz")
+    pool = train_flow.PairPool.from_arrays(pool["a"], pool["b"], pool["gt"])
+    tnet = copy.deepcopy(net_cpu).to(dev)
+    step = train_flow.make_train_step(tnet, 2e-4, 40)
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.from_numpy(v).to(dev) for v in
+                     pool.batch(rng, 8, FLOW_CROP)) for _ in range(21)]
+    step(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in batches[1:]:
+        loss, _ = step(*bt)
+    torch.cuda.synchronize()
+    per_s = 20 / (time.perf_counter() - t0)
+    check(bool(torch.isfinite(loss)), f"train_flow step loss {loss}")
+    print(f"[train_flow] main: 20 steps, bs 8, crop {FLOW_CROP[0]}x"
+          f"{FLOW_CROP[1]}, pool of "
+          f"{len(pool.a)} pairs: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{[ln for ln in lines if ln.startswith('val EPE')][-1]}; "
+          f"{main_s:.1f} s with the pool and validation; the saved file "
+          f"reloads; step alone {per_s:.2f} steps/s (20 steps, host-to-"
+          f"device copies done ahead); {smi}")
+    print(f"[flow] phase 18 {time.perf_counter() - T0:.1f} s; {smi}")
 
 
 def drift_phase(settings, dev, sf_np, mf_np) -> None:

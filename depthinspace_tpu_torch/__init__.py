@@ -12,7 +12,10 @@ train and evaluation steps (``train.steps``), the workers
 (``train.single_frame``, ``train.multi_frame``) and the tools of the staged
 pipeline (``tools.presave_flow``, ``tools.presave_disp``,
 ``tools.build_cache``), which read and write the datasets' HDF5 files with
-``data.hdf5`` (numpy alone). Their hot kernels (census-SAD, the pattern warp by
+``data.hdf5`` (numpy alone); and the learned flow provider
+(``models.flownet.FlowNet``, trained by ``tools.train_flow``), which
+gives the track server, ``presave_flow --provider learned`` and
+``--flow_source net`` their flow. Their hot kernels (census-SAD, the pattern warp by
 disparity, the flow warp and the pair-indexed flow warp of FuseNet, forward
 and backward) are hand-written CUDA C++ for Hopper under ``csrc/``. On a
 CUDA tensor each runs its kernel or raises; on a CPU tensor it runs its

@@ -49,7 +49,8 @@ class RunConfig:
     device_augment: bool = True
     wire_cache: bool = True                 # read <data_dir>/wire_cache
     test_frequency: int = 1                 # eval every N epochs
-    flow_source: str = "file"               # file | rigid | pred
+    flow_source: str = "file"               # file | rigid | pred | net
+    flow_params: str = ""                   # FlowNet msgpack for "net"
     photometric_pyramid: bool = False
     seed: int = 42
     learning_rate: float = 1e-4

@@ -1,6 +1,6 @@
-"""Weights of the flax ``DispNet`` and ``FuseNet``
-(``depthinspace_tpu/models/{dispnet,fusenet}.py``) as a ``state_dict`` for
-this package's models, and back.
+"""Weights of the flax ``DispNet``, ``FuseNet`` and ``FlowNet``
+(``depthinspace_tpu/models/{dispnet,fusenet,flownet}.py``) as a
+``state_dict`` for this package's models, and back.
 
 The flax tree, with modules named in creation order, holds 64 leaves:
 
@@ -21,6 +21,10 @@ name: ``block0/conv3d_1/Dense_0/kernel`` is ``block0.conv3d_1.Dense_0.
 weight``. Conv kernels HWIO become OIHW, Dense kernels (in, out) become
 (out, in), GroupNorm's scale is the weight; the head's ``predict_disp/
 Conv_0`` is ``predict_disp.conv``.
+
+FlowNet's tree has 40 leaves, ``encoder/{down,conv}{0..3}`` and
+``level{1,2,3}/{dec0,dec1,dec2,flow_head}``, each a 3x3 conv's kernel
+(HWIO -> OIHW) and bias; the port's FlowNet has the same module names.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from .flownet import FlowNet
 
 
 def _conv(kernel) -> torch.Tensor:
@@ -159,4 +165,41 @@ def flax_tree_from_fusenet_state_dict(sd: Mapping) -> dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(a)
+    return {"params": params}
+
+
+def flownet_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """``tree``: the flax variables of FlowNet as nested dicts of numpy
+    arrays, with or without the top-level "params" key. Raises unless it
+    holds the 40 leaves of the port's FlowNet."""
+    p = tree["params"] if "params" in tree else tree
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(p):
+        *mods, name = path
+        sd[".".join(mods + ["weight" if name == "kernel" else name])] = (
+            _conv(leaf) if name == "kernel" else _bias(leaf))
+    w0 = sd.get("encoder.down0.weight")
+    want = set(FlowNet(2 if w0 is None else w0.shape[1]).state_dict())
+    if set(sd) != want:
+        raise ValueError(
+            f"flax tree has {len(sd)} leaves, the port's FlowNet takes "
+            f"{len(want)}; not in the model: {sorted(set(sd) - want)[:5]}, "
+            f"missing: {sorted(want - set(sd))[:5]}")
+    return sd
+
+
+def flax_tree_from_flownet_state_dict(sd: Mapping) -> dict:
+    """The inverse of :func:`flownet_state_dict_from_flax`: the flax
+    variables {"params": {...}} as nested dicts of float32 numpy arrays,
+    each module's leaves in sorted order as flax writes them."""
+    params: dict = {}
+    for key in sorted(sd):
+        *mods, name = key.split(".")
+        a = sd[key].detach().cpu().numpy().astype(np.float32)
+        if name == "weight":            # OIHW -> HWIO
+            name, a = "kernel", a.transpose(2, 3, 1, 0)
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
     return {"params": params}

@@ -1,12 +1,14 @@
 """Batched disparity inference, port of ``depthinspace_tpu/serve.py``:
 ``DisparityServer`` (DIS-SF on single frames) and ``TrackDisparityServer``
-(DIS-SF then DIS-MF on tracks of frames with their poses and flow).
+(DIS-SF then DIS-MF on tracks of frames with their poses, and with the
+caller's optical flow or the learned FlowNet's).
 
 A request is cut into chunks of at most ``max_batch`` images (tracks), and
 each chunk is padded (by repeating its last item) up to a power-of-2
 bucket, as the JAX servers do. Images cross to the device as uint16 fixed
-point (x 65535) and flow as int16 x 256, so the outputs match the JAX
-servers' for the same request.
+point (x 65535) and the caller's flow as int16 x 256, so the outputs match
+the JAX servers' for the same request; FlowNet's flow stays float32 on the
+device, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from .data.wire import decode_field, encode_flow, encode_unit, to_u16_disp
 from .device import resolve_device
-from .models import (DispNet, FuseNet, dispnet_state_dict_from_flax,
+from .models import (DispNet, FlowNet, FuseNet, dispnet_state_dict_from_flax,
+                     flow_all_pairs, flownet_state_dict_from_flax,
                      fusenet_state_dict_from_flax)
 from .ops import disp_to_depth, lcn
 
@@ -133,22 +136,27 @@ def _default_K(imsize) -> np.ndarray:
 
 class TrackDisparityServer:
     """The DIS pipeline on tracks: LCN, the DIS-SF network (the primary
-    disparity), then FuseNet on the primary and the given pairwise optical
-    flow, one forward per request bucket.
+    disparity), then FuseNet on the primary and the pairwise optical flow,
+    one forward per request bucket.
 
     >>> srv = TrackDisparityServer.from_net_params(
-    ...     "single_frame/net_0029.params", "multi_frame/net_0009.params")
-    >>> disp = srv.infer(im, ambient, R, t, flow)   # (n, tl, H, W) -> same
+    ...     "single_frame/net_0029.params", "multi_frame/net_0009.params",
+    ...     flow_params_path="output/flownet.msgpack")
+    >>> disp = srv.infer(im, ambient, R, t)         # (n, tl, H, W) -> same
+    >>> disp = srv.infer(im, ambient, R, t, flow)   # the caller's flow
 
-    The flow is the caller's: the JAX server can compute it with its
-    learned FlowNet, which is not ported yet (``infer`` without flow
-    raises). ``device=None`` is the card; the CPU only with
-    ``device="cpu"``. ``compute_dtype`` is FuseNet's (DIS-SF runs in
-    float32, as in the JAX server)."""
+    Without flow from the caller, the flow of every ordered frame pair comes
+    from the frozen FlowNet on the device (``flow_all_pairs``), which needs
+    ``flow_net`` (else ``infer`` raises ValueError, as in JAX); its input
+    channels are the net's own ``in_channels``.
+    ``device=None`` is the card; the CPU only with ``device="cpu"``.
+    ``compute_dtype`` is FuseNet's (DIS-SF and FlowNet run in float32, as in
+    the JAX server)."""
 
     def __init__(self, sf_model: DispNet, mf_model: FuseNet,
-                 imsize=(512, 432), K=None, baseline: float = 0.025,
-                 max_tracks: int = 4, lcn_radius: int = 5, device=None):
+                 flow_net: FlowNet | None = None, imsize=(512, 432), K=None,
+                 baseline: float = 0.025, max_tracks: int = 4,
+                 lcn_radius: int = 5, device=None):
         self.device = resolve_device(device)
         self.imsize = tuple(imsize)
         self.track_length = mf_model.track_length
@@ -159,6 +167,8 @@ class TrackDisparityServer:
         self.focal, self.baseline = float(K[0, 0]), float(baseline)
         self.sf = sf_model.to(self.device).eval()
         self.mf = mf_model.to(self.device).eval()
+        self.flow = (None if flow_net is None
+                     else flow_net.to(self.device).eval())
 
     @staticmethod
     def _fusenet(imsize, K, track_length, max_disp, compute_dtype):
@@ -167,65 +177,79 @@ class TrackDisparityServer:
                        compute_dtype=compute_dtype)
 
     @classmethod
-    def from_jax_params(cls, sf_tree, mf_tree, imsize=(512, 432), K=None,
-                        track_length: int = 4, max_disp: float = 128.0,
+    def from_jax_params(cls, sf_tree, mf_tree, flow_tree=None,
+                        imsize=(512, 432), K=None, track_length: int = 4,
+                        max_disp: float = 128.0,
                         compute_dtype=torch.bfloat16, **kw):
-        """From the flax DispNet and FuseNet variables as nested dicts of
-        numpy arrays."""
+        """From the flax DispNet, FuseNet and (optional) FlowNet variables
+        as nested dicts of numpy arrays."""
         sf = DispNet(max_disp=max_disp)
         sf.load_state_dict(dispnet_state_dict_from_flax(sf_tree))
         mf = cls._fusenet(imsize, K, track_length, max_disp, compute_dtype)
         mf.load_state_dict(fusenet_state_dict_from_flax(mf_tree, mf))
-        return cls(sf, mf, imsize=imsize, K=K, **kw)
+        flow = None
+        if flow_tree is not None:
+            sd = flownet_state_dict_from_flax(flow_tree)
+            flow = FlowNet(sd["encoder.down0.weight"].shape[1])
+            flow.load_state_dict(sd)
+        return cls(sf, mf, flow, imsize=imsize, K=K, **kw)
 
     @classmethod
-    def from_net_params(cls, sf_path, mf_path, imsize=(512, 432), K=None,
-                        track_length: int = 4, max_disp: float = 128.0,
+    def from_net_params(cls, sf_path, mf_path, flow_params_path=None,
+                        imsize=(512, 432), K=None, track_length: int = 4,
+                        max_disp: float = 128.0,
                         compute_dtype=torch.bfloat16, **kw):
         """From the two ``net_%04d.params`` files (flax msgpack) of a DIS-SF
-        and a DIS-MF run, written by either package's trainer."""
+        and a DIS-MF run, written by either package's trainer, and
+        optionally a train_flow FlowNet msgpack (its input channels read
+        from the file)."""
+        from .tools.train_flow import load_flow_params
         from .train.checkpoint import load_net_params
         sf = DispNet(max_disp=max_disp)
         sf.load_state_dict(load_net_params(sf_path))
         mf = cls._fusenet(imsize, K, track_length, max_disp, compute_dtype)
         mf.load_state_dict(load_net_params(mf_path, mf))
-        return cls(sf, mf, imsize=imsize, K=K, **kw)
+        flow = (load_flow_params(flow_params_path)[0] if flow_params_path
+                else None)
+        return cls(sf, mf, flow, imsize=imsize, K=K, **kw)
 
     @torch.inference_mode()
     def _run(self, im_u16, amb_u16, R, t, flow_i16) -> torch.Tensor:
         """Track-major device arrays: im/amb (tl, n, H, W) u16; R (tl, n, 3,
-        3); t (tl, n, 3); flow (tl, tl, n, H, W, 2) int16 x 256. Returns the
-        disparity (tl, n, H, W) as u16 x 256."""
+        3); t (tl, n, 3); flow (tl, tl, n, H, W, 2) int16 x 256, or None for
+        FlowNet's flow. Returns the disparity (tl, n, H, W) as u16 x 256."""
         to = lambda x: torch.from_numpy(x).to(self.device)
-        ir = lcn_input(decode_field("im", to(im_u16)), self.lcn_radius)
+        im = decode_field("im", to(im_u16))
+        amb = decode_field("ambient", to(amb_u16))
+        ir = lcn_input(im, self.lcn_radius)
         primary = sf_forward(self.sf, ir)
-        out = mf_forward(self.mf, ir, decode_field("ambient", to(amb_u16)),
-                         primary, to(R), to(t),
-                         decode_field("flow", to(flow_i16)), self.focal,
-                         self.baseline)
+        flow = (flow_all_pairs(self.flow, im, amb) if flow_i16 is None
+                else decode_field("flow", to(flow_i16)))
+        out = mf_forward(self.mf, ir, amb, primary, to(R), to(t), flow,
+                         self.focal, self.baseline)
         return to_u16_disp(out)
 
     def infer(self, im, ambient, R, t, flow=None) -> np.ndarray:
         """im/ambient (n, tl, H, W) float32 in [0, 1]; R (n, tl, 3, 3);
         t (n, tl, 3); flow (n, tl, tl, H, W, 2) in pixels, flow[:, i, j]
-        from frame i to frame j. Returns the refined disparity (n, tl, H, W)
-        float32, in steps of 1/256 px."""
-        if flow is None:
-            raise NotImplementedError(
-                "TrackDisparityServer needs the flow from the caller: the "
-                "learned flow provider (FlowNet, models/flownet.py) is not "
-                "ported yet")
-        arrays = [np.asarray(a, np.float32) for a in (im, ambient, R, t, flow)]
+        from frame i to frame j, or None for FlowNet's. Returns the refined
+        disparity (n, tl, H, W) float32, in steps of 1/256 px."""
+        if flow is None and self.flow is None:
+            raise ValueError("no flow provided and no flow_params loaded")
+        arrays = [np.asarray(a, np.float32) for a in (im, ambient, R, t)]
+        if flow is not None:
+            arrays.append(np.asarray(flow, np.float32))
         n = arrays[0].shape[0]
         outs = []
         for lo in range(0, n, self.max_tracks):
             chunk = [a[lo:lo + self.max_tracks] for a in arrays]
             m = chunk[0].shape[0]
             b = _bucket(m, self.max_tracks)
-            im_c, amb_c, R_c, t_c, fl_c = (_pad_to(a, b) for a in chunk)
+            im_c, amb_c, R_c, t_c, *fl_c = (_pad_to(a, b) for a in chunk)
             # the request is track-major per item (n, tl, ...); the device
             # layout is tl-major
-            fl_i16 = encode_flow(np.moveaxis(fl_c, 0, 2))
+            fl_i16 = (encode_flow(np.moveaxis(fl_c[0], 0, 2)) if fl_c
+                      else None)
             out = self._run(encode_unit(np.moveaxis(im_c, 0, 1)),
                             encode_unit(np.moveaxis(amb_c, 0, 1)),
                             np.ascontiguousarray(np.moveaxis(R_c, 0, 1)),

@@ -3,7 +3,7 @@
 
   python -m depthinspace_tpu_torch.tools.presave_disp single_frame --epoch 49
   python -m depthinspace_tpu_torch.tools.presave_disp multi_frame --epoch 49 \\
-      [--flow_source file|rigid|pred]
+      [--flow_source file|rigid|pred|net] [--flow_params flownet.msgpack]
 
 Runs the trained network OUTPUT_DIR/<architecture>/net_%04d.params (written
 by either package) over every sample directory and writes
@@ -14,9 +14,11 @@ by either package) over every sample directory and writes
 call (8 DIS-SF, 4 DIS-MF; the tail batch padded), images cross to the
 device as uint16 x65535, disparities as uint16 x256 and flow as int16 x256,
 the output comes back as uint16 x256 and is written as float32 / 256.
-DIS-MF's flow is flow.hdf5's (``file``) or computed on the device from the
-GT disparity (``rigid``) or the primary (``pred``) and the poses; ``net``
-(FlowNet) is not ported. After writing, an existing wire cache gets the
+DIS-MF's flow is flow.hdf5's (``file``), computed on the device from the
+GT disparity (``rigid``) or the primary (``pred``) and the poses, or
+FlowNet's on the device from the decoded images (``net``; ``--flow_params``,
+default OUTPUT_DIR/flownet.msgpack), the flow DIS-MF trained with
+``--flow_source net`` saw. After writing, an existing wire cache gets the
 field refreshed (primary_disp or pseudo_gt).
 
 ``main(argv, device=None)`` runs on the card; ``device="cpu"`` only when
@@ -38,7 +40,7 @@ from ..data.wire import (decode_field, encode_disp, encode_flow, encode_unit,
                          to_u16_disp)
 from ..device import resolve_device
 from ..losses import CameraGeometry
-from ..models import DispNet, FuseNet
+from ..models import DispNet, FuseNet, flow_all_pairs
 from ..serve import lcn_input, mf_forward, sf_forward
 from ..train.checkpoint import load_net_params
 from ..train.objective import rigid_flow_device
@@ -58,16 +60,15 @@ def build_sf_infer(model: DispNet, device):
 
 
 def build_mf_infer(settings, model: FuseNet, device,
-                   flow_source: str = "file"):
+                   flow_source: str = "file", flow_net=None):
     """DIS-MF on ``device`` (the FuseNet forward of ``TrackDisparityServer``,
     on the presaved primary): track-major (tl, N, H, W) uint16 images,
     primary (x256), R (tl, N, 3, 3), t (tl, N, 3) and, by flow source, the
     (tl, tl, N, H, W, 2) int16 x256 flow ("file") or the GT disparity
-    (uint16 x256, "rigid") -> (tl, N, H, W) uint16 x256."""
+    (uint16 x256, "rigid") -> (tl, N, H, W) uint16 x256. "net" takes the
+    FlowNet ``flow_net``."""
     if flow_source == "net":
-        raise NotImplementedError(
-            "--flow_source net needs FlowNet (models/flownet.py), which is "
-            "not ported yet; use file, rigid or pred")
+        flow_net = flow_net.to(device).eval()
     H, W = settings.imsize
     model = model.to(device).eval()
     cam = CameraGeometry.create(settings.K, H, W, device=device)
@@ -78,16 +79,19 @@ def build_mf_infer(settings, model: FuseNet, device,
               dispgt_u16=None) -> np.ndarray:
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         primary = decode_field("primary_disp", to(primary_u16))
+        im = decode_field("im", to(im_u16))
+        amb = decode_field("ambient", to(amb_u16))
         R, t = to(R), to(t)
         if flow_source == "file":
             flow = decode_field("flow", to(flow_i16))
+        elif flow_source == "net":
+            flow = flow_all_pairs(flow_net, im, amb)
         else:
             disp = (primary if flow_source == "pred" else
                     decode_field("disp_gt", to(dispgt_u16)))
             flow = rigid_flow_device(cam, disp, R, t, focal, baseline)
-        out = mf_forward(model, lcn_input(decode_field("im", to(im_u16))),
-                         decode_field("ambient", to(amb_u16)), primary, R, t,
-                         flow, focal, baseline)
+        out = mf_forward(model, lcn_input(im), amb, primary, R, t, flow,
+                         focal, baseline)
         return to_u16_disp(out).cpu().numpy()
 
     return infer
@@ -136,8 +140,11 @@ def main(argv=None, device=None):
                     help="multi_frame only: file reads flow.hdf5; rigid "
                          "computes the flow on the device from the GT "
                          "disparity and the poses; pred from the presaved "
-                         "primary and the poses; net (FlowNet) is not "
-                         "ported yet")
+                         "primary and the poses; net with the frozen "
+                         "FlowNet from the images")
+    ap.add_argument("--flow_params", default=None,
+                    help="FlowNet msgpack for --flow_source net "
+                         "(default OUTPUT_DIR/flownet.msgpack)")
     ap.add_argument("--ranges", default=None,
                     help="comma-separated lo:hi index ranges into the "
                          "sorted sample list to presave (e.g. "
@@ -160,7 +167,15 @@ def main(argv=None, device=None):
     else:
         model = FuseNet(imsize=settings.imsize, K=settings.K, track_length=4,
                         max_disp=128.0)
-        infer = build_mf_infer(settings, model, dev, args.flow_source)
+        flow_net = None
+        if args.flow_source == "net":
+            from .train_flow import load_flow_params
+            fp_path = Path(args.flow_params
+                           or output_dir / "flownet.msgpack")
+            flow_net, flow_ch = load_flow_params(fp_path)
+            print(f"FlowNet provider: {fp_path} ({flow_ch}-channel)")
+        infer = build_mf_infer(settings, model, dev, args.flow_source,
+                               flow_net)
     model.load_state_dict(load_net_params(model_path, model))
 
     # the worker's split enumeration (glob("0*"), sorted), so that --ranges

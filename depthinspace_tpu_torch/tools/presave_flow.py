@@ -2,14 +2,24 @@
 port of ``depthinspace_tpu/tools/presave_flow.py``:
 
   python -m depthinspace_tpu_torch.tools.presave_flow --provider rigid
+  python -m depthinspace_tpu_torch.tools.presave_flow --provider learned \
+      [--flow_params output/flownet.msgpack]
 
 writes ``<sample>/flow.hdf5`` with datasets flow_{i}{j} of shape (1, 2, H,
-W), the schema the datasets read, for every sample directory of DATA_DIR
-that holds a frames.hdf5. The ``rigid`` provider is the exact flow of a
-static scene from the GT depth and the camera poses (numpy on the host, as
-in the JAX tool). ``farneback`` (OpenCV's dense flow) and ``learned`` (the
-JAX package's FlowNet) are valid choices that raise: neither OpenCV nor
-FlowNet is part of this package. The tool uses no device.
+W), float32, the schema the datasets read, for every sample directory of
+DATA_DIR that holds a frames.hdf5. Providers:
+
+- ``rigid``: the exact flow of a static scene from the GT depth and the
+  camera poses (numpy on the host, as in the JAX tool);
+- ``learned``: FlowNet (``tools/train_flow.py``'s msgpack, default
+  OUTPUT_DIR/flownet.msgpack) on the device, all ordered pairs of a sample
+  in one batched call, on the checkpoint's input channels ([ambient, IR] or
+  ambient; IR is read only for a 2-channel net);
+- ``farneback`` (OpenCV's dense flow) is a valid choice that raises: this
+  package uses no OpenCV.
+
+``main(argv, device=None)`` runs the learned provider on the card
+(``device="cpu"`` only when asked for); ``rigid`` uses no device.
 """
 
 from __future__ import annotations
@@ -18,10 +28,13 @@ import argparse
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..config import load_paths
 from ..data import hdf5, load_settings
 from ..data.synthetic import rigid_flow as _rigid_flow_hw2
+from ..device import resolve_device
+from ..models import flow_all_pairs
 
 
 def rigid_flow(depth_i, K, R_i, t_i, R_j, t_j) -> np.ndarray:
@@ -45,28 +58,56 @@ def process_sample(sample: Path, K, baseline, focal) -> None:
         for i, j in pairs})
 
 
-def main(argv=None):
+def process_sample_learned(sample: Path, net, device) -> None:
+    """Write ``sample``/flow.hdf5, FlowNet's flow of every ordered pair of
+    its frames (one batched call on ``device``)."""
+    with hdf5.File(sample / "frames.hdf5") as f:
+        amb = np.array(f["ambient"][:, 0], np.float32)
+        im = (np.array(f["im"][:, 0], np.float32)
+              if net.in_channels == 2 else None)
+    tl = amb.shape[0]
+    to = lambda a: None if a is None else torch.from_numpy(a[:, None]).to(
+        device)
+    flow = flow_all_pairs(net, to(im), to(amb))
+    flow = flow[:, :, 0].permute(0, 1, 4, 2, 3).cpu().numpy()  # (tl,tl,2,H,W)
+    hdf5.write_hdf5(sample / "flow.hdf5", {
+        f"flow_{i}{j}": np.ascontiguousarray(flow[i, j][None])
+        for i in range(tl) for j in range(tl) if i != j})
+
+
+def main(argv=None, device=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--provider", default="rigid",
                     choices=["rigid", "farneback", "learned"])
+    ap.add_argument("--flow_params", default=None,
+                    help="FlowNet params (train_flow.py output) for "
+                         "--provider learned (default "
+                         "OUTPUT_DIR/flownet.msgpack)")
     ap.add_argument("--data_dir", default=None)
     args = ap.parse_args(argv)
     if args.provider == "farneback":
         raise NotImplementedError(
             "the farneback provider needs OpenCV (cv2), which this package "
-            "does not use; use --provider rigid")
-    if args.provider == "learned":
-        raise NotImplementedError(
-            "the learned provider needs FlowNet (models/flownet.py), which "
-            "is not ported yet; use --provider rigid")
+            "does not use; use --provider rigid or learned")
 
-    data_root = Path(args.data_dir or load_paths()["DATA_DIR"])
+    paths = (load_paths() if not args.data_dir or (
+        args.provider == "learned" and not args.flow_params) else {})
+    data_root = Path(args.data_dir or paths["DATA_DIR"])
     settings = load_settings(data_root / "settings.pkl")
+    net = None
+    if args.provider == "learned":
+        from .train_flow import load_flow_params
+        dev = resolve_device(device)
+        net = load_flow_params(args.flow_params or Path(
+            paths["OUTPUT_DIR"]) / "flownet.msgpack")[0].to(dev)
     sample_dirs = sorted(p for p in data_root.iterdir()
                          if p.is_dir() and (p / "frames.hdf5").exists())
     for i, sample in enumerate(sample_dirs):
-        process_sample(sample, settings.K, settings.baseline,
-                       settings.focal_length)
+        if net is None:
+            process_sample(sample, settings.K, settings.baseline,
+                           settings.focal_length)
+        else:
+            process_sample_learned(sample, net, dev)
         if i % 100 == 0:
             print(f"{i + 1}/{len(sample_dirs)}")
     print(f"wrote flow.hdf5 ({args.provider}) for {len(sample_dirs)} samples")

@@ -14,8 +14,9 @@ train/objective.py``:
                         * masked-noisy-L1(out, sgm_disp)]
 
 with the training-time device augmentation (``augment_batch_device``) and
-the flow sources "file", "rigid" and "pred" (DIS-MF: the rigid flow of the
-primary disparity). The JAX package draws its
+the flow sources "file", "rigid", "pred" (DIS-MF: the rigid flow of the
+primary disparity) and "net" (the frozen FlowNet's flow of the batch's
+images). The JAX package draws its
 random numbers from jax keys; here they come from an explicit
 ``torch.Generator``, or are passed in (the tests hand both packages the
 same numbers).
@@ -31,9 +32,10 @@ import torch.nn.functional as F
 
 from ..losses import (CameraGeometry, geometric_loss_mf, geometric_loss_sf,
                       photometric_loss, smoothness_loss)
+from ..models import flow_all_pairs
 from ..ops import disp_to_depth, lcn, resize_bilinear
 
-FLOW_SOURCES = ("file", "rigid", "pred")
+FLOW_SOURCES = ("file", "rigid", "pred", "net")
 
 
 class LossContext(NamedTuple):
@@ -64,8 +66,11 @@ class LossContext(NamedTuple):
     aug_max_sp_noise: float = 0.0005
     # "file": flow comes with the batch; "rigid": from the GT disparity and
     # the poses (synthetic data); "pred": from the current prediction (SF)
-    # or the primary disparity (MF) and the poses (GT-free)
+    # or the primary disparity (MF) and the poses (GT-free); "net": from
+    # the frozen FlowNet ``flow_net`` on the batch's images (GT-free), on
+    # the net's own input channels
     flow_source: str = "file"
+    flow_net: Optional[torch.nn.Module] = None
     # scale s of the photometric term at 1/2^s resolution, with the
     # per-scale LCN'd patterns for s = 1..3
     photometric_pyramid: bool = False
@@ -77,12 +82,10 @@ def make_loss_context(settings, track_length: int = 4, device=None,
     """``settings``: any object with imsize, K, baseline, focal_length and
     pattern_gray() (``data.Settings`` or the JAX ``Settings``)."""
     flow_source = kwargs.get("flow_source", "file")
-    if flow_source == "net":
-        raise NotImplementedError(
-            "flow_source='net' needs the learned FlowNet, which is not "
-            "ported yet; use 'file', 'rigid' or 'pred'")
     if flow_source not in FLOW_SOURCES:
         raise ValueError(f"flow_source must be one of {FLOW_SOURCES}")
+    if flow_source == "net" and kwargs.get("flow_net") is None:
+        raise ValueError("flow_source='net' needs flow_net (a FlowNet)")
     H, W = settings.imsize
     cam = CameraGeometry.create(settings.K, H, W, device=device)
     radius = kwargs.get("lcn_radius", 5)
@@ -223,14 +226,18 @@ def augment_batch_device(batch, draws: AugmentDraws):
 
 def prepare_batch(batch, ctx: LossContext, multi_frame: bool = False):
     """The step's flow source: "rigid" computes the all-pairs flow from the
-    GT disparity and the poses; for DIS-MF "pred" computes it from the
-    primary disparity (the SF predictions FuseNet fuses); "file" leaves the
-    batch as it is, and so does SF "pred" (its flow comes from the live
-    prediction inside sf_losses)."""
+    GT disparity and the poses; "net" from the (decoded, augmented) images
+    by the frozen FlowNet, without gradient; for DIS-MF "pred" computes it
+    from the primary disparity (the SF predictions FuseNet fuses); "file"
+    leaves the batch as it is, and so does SF "pred" (its flow comes from
+    the live prediction inside sf_losses)."""
     if ctx.flow_source == "rigid":
         batch = batch._replace(flow=rigid_flow_device(
             ctx.cam, batch.disp_gt, batch.R, batch.t, ctx.focal_length,
             ctx.baseline))
+    elif ctx.flow_source == "net":
+        batch = batch._replace(flow=flow_all_pairs(
+            ctx.flow_net, batch.im, batch.ambient))
     elif ctx.flow_source == "pred" and multi_frame:
         batch = batch._replace(flow=rigid_flow_device(
             ctx.cam, batch.primary_disp, batch.R, batch.t, ctx.focal_length,

@@ -7,6 +7,7 @@ update, eagerly; the eval step runs the forward and the components under
 px) as the JAX step does. Both decode the batch's 16-bit wire fields
 first (``data/wire.py::decode_batch``; float32 fields pass through), then
 apply the flow source (``rigid`` computes the flow from the GT disparity;
+``net`` runs the frozen FlowNet on the decoded images, without gradient;
 for DIS-MF ``pred`` computes it from the primary disparity); for DIS-SF
 with ``flow_source="pred"`` the flow comes from the live prediction inside
 ``sf_losses``.

@@ -116,11 +116,20 @@ class Worker:
         if cfg.flow_source == "rigid" and cfg.data_type != "synthetic":
             raise ValueError("--flow_source rigid needs GT disparity "
                              "(synthetic data)")
+        flow_net = None
+        if cfg.flow_source == "net":
+            from ..tools.train_flow import load_flow_params
+            fp_path = Path(cfg.flow_params
+                           or Path(cfg.output_dir) / "flownet.msgpack")
+            flow_net, flow_ch = load_flow_params(fp_path)
+            flow_net.to(self.device)
+            logging.info(f"FlowNet provider: {fp_path} ({flow_ch}-channel)")
         self.ctx = make_loss_context(
             self.settings, track_length=cfg.track_length, device=self.device,
             data_type=cfg.data_type, warmup_epochs=cfg.warmup_epochs,
             use_pseudo_gt=cfg.use_pseudo_gt, lcn_radius=cfg.lcn_radius,
             augment=cfg.device_augment, flow_source=cfg.flow_source,
+            flow_net=flow_net,
             photometric_pyramid=cfg.photometric_pyramid)
         self.accum_steps = self._resolve_accum()
         if self.accum_steps > 1:

@@ -58,10 +58,10 @@ def parse_args(argv=None):
     add("--flow_source", default="file",
         choices=["file", "rigid", "net", "pred"],
         help="file: flow.hdf5; rigid: from GT disparity + poses (synthetic "
-             "data); pred: from the predicted disparity + poses; net (the "
-             "learned FlowNet) is not ported yet")
+             "data); pred: from the predicted disparity + poses; net: the "
+             "frozen learned FlowNet on the batch's images")
     add("--flow_params", default="", help="FlowNet msgpack for "
-        "--flow_source net (not ported yet)")
+        "--flow_source net (default OUTPUT_DIR/flownet.msgpack)")
     add("--mf_remat", help="Recompute FuseNet's fusion and decoder blocks "
         "in the backward (torch.utils.checkpoint) instead of keeping their "
         "activations", default=False, type=str2bool)

@@ -254,8 +254,9 @@ def test_track_server_matches_jax_server():
     outputs differ by 0.3 px on average on consistent flow); so the flow
     here is one the forward-backward test rejects everywhere, which leaves
     the target frame's own 3x3 candidates and a selection no rounding can
-    move. Consistent (rigid) flow then changes the output; without flow the
-    server raises, naming the unported FlowNet."""
+    move. Consistent (rigid) flow then changes the output; without flow and
+    without a FlowNet the server raises ValueError, as the JAX server
+    does."""
     Ht, Wt, n = 32, 32, 3
     K = np.array([[20.0, 0, Wt / 2], [0, 20.0, Ht / 2], [0, 0, 1]],
                  np.float32)
@@ -289,7 +290,7 @@ def test_track_server_matches_jax_server():
     assert out.shape == (n, TL, Ht, Wt) and np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1.0 / 256)
     assert np.abs(srv.infer(im, amb, R, t, rigid) - out).mean() > 0.1
-    with pytest.raises(NotImplementedError, match="FlowNet"):
+    with pytest.raises(ValueError, match="no flow provided"):
         srv.infer(im, amb, R, t)
 
 

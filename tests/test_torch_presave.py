@@ -14,6 +14,7 @@ rigid and predicted flows only the shape, finiteness and range are
 checked."""
 import json
 import shutil
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -30,6 +31,7 @@ from depthinspace_tpu_torch.tools import build_cache, presave_disp, presave_flow
 from flax import serialization
 
 H, W, N = 64, 56, 3
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -175,21 +177,45 @@ def test_mf_presave_rigid_and_pred_flow(root, flow_source):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["multi_frame", "--flow_source", "net"], "FlowNet"),
-    (["--provider", "learned"], "FlowNet"),
     (["--provider", "farneback"], "cv2"),
-], ids=["presave_disp-net", "presave_flow-learned", "presave_flow-farneback"])
+], ids=["presave_flow-farneback"])
 def test_unported_providers_raise(root, argv, match):
-    """The JAX tools' other choices stay valid and raise, naming what is
-    not ported."""
-    d = ["--data_dir", str(root / "port")]
+    """The JAX tool's farneback choice stays valid and raises, naming
+    OpenCV, which the port does not use."""
     with pytest.raises(NotImplementedError, match=match):
-        if argv[0] == "multi_frame":
-            presave_disp.main(argv + d + ["--epoch", "0", "--output_dir",
-                                          str(root / "port" / "out")],
-                              device="cpu")
+        presave_flow.main(argv + ["--data_dir", str(root / "port")])
+
+
+@pytest.mark.parametrize("argv,written", [
+    (["multi_frame", "--flow_source", "net"], "multi_frame_disp.hdf5"),
+    (["--provider", "learned"], "flow.hdf5"),
+], ids=["presave_disp-net", "presave_flow-learned"])
+def test_flownet_providers_write(root, argv, written):
+    """The FlowNet choices (output/flownet.msgpack) write their files:
+    multi_frame_disp.hdf5 (4, 1, H, W) in [0, 128], and flow.hdf5's 12
+    flows (1, 2, H, W), finite float32. The values are held to the JAX tool
+    and to the port's own composition in tests/test_torch_flow_net_paths.py.
+    """
+    weights = str(REPO / "output" / "flownet.msgpack")
+    d = ["--data_dir", str(root / "port"), "--flow_params", weights]
+    if argv[0] == "multi_frame":
+        presave_disp.main(argv + d + ["--epoch", "0", "--output_dir",
+                                      str(root / "port" / "out")],
+                          device="cpu")
+    else:
+        presave_flow.main(argv + d, device="cpu")
+    for sample in _samples(root / "port"):
+        out = _read(sample / written)
+        if written == "flow.hdf5":
+            assert len(out) == 12
+            shapes = {(1, 2, H, W)}
         else:
-            presave_flow.main(argv + d)
+            assert list(out) == ["disp"]
+            assert 0 <= out["disp"].min() and out["disp"].max() <= 128
+            shapes = {(4, 1, H, W)}
+        assert {v.shape for v in out.values()} == shapes
+        assert all(v.dtype == np.float32 and np.isfinite(v).all()
+                   for v in out.values())
 
 
 def _assert_caches_equal(port_dir, ref_dir):

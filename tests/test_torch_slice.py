@@ -119,7 +119,8 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     wire cache written with numpy, read, and trained and tested from by the
     worker; a dataset directory written through data/hdf5.py, read back by
     TrackDataset, and presave_disp single_frame over it; then FuseNet, one
-    DIS-MF train step and one TrackDisparityServer request."""
+    DIS-MF train step and one TrackDisparityServer request, with the flow
+    given and with output/flownet.msgpack's FlowNet computing it."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -259,6 +260,14 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
                         mb.flow.transpose(2, 0, 1, 3, 4, 5))
         assert out.shape == (1, 4, 32, 24)
         mark("track server")
+        from depthinspace_tpu_torch.tools.train_flow import load_flow_params
+        fnet, ch = load_flow_params(Path("output") / "flownet.msgpack")
+        assert ch == 2
+        srv = TrackDisparityServer(net, mf, fnet, imsize=(32, 24), K=s.K,
+                                   device="cpu")
+        out = srv.infer(mv(mb.im), mv(mb.ambient), mv(mb.R), mv(mb.t))
+        assert out.shape == (1, 4, 32, 24) and np.isfinite(out).all()
+        mark("track server with FlowNet's flow")
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
