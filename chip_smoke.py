@@ -31,7 +31,11 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            and K1 bwd also at the train shape on an input with exact ties,
            each called twice for the same bits;
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
-           ragged 13-image request (8 + 5), maps/s;
+           ragged 13-image request (8 + 5) served twice, bit for bit equal
+           (deterministic cuDNN algorithms, serve.CUDNN_FLAGS); maps/s on
+           those and on cuDNN's default algorithms (the forward before the
+           repair), in turns, and the default ones' run-to-run difference;
+           a device profile of one bucket on each;
 5. eval    the DIS-SF evaluation step on a (tl=4, bs=2) synthetic track batch
            with flow from the batch and from the prediction. The launch
            counters are zeroed before phase 4 and read after phase 5: every
@@ -55,8 +59,10 @@ launch counters are zeroed before phase 10 and read after phase 12 (the MF
 path; every kernel but K5 must run on it):
 
 10. mf serve   TrackDisparityServer from seeded DispNet + FuseNet weights: a
-               ragged 3-track request (bucket 4), then 4-track requests,
-               tracks/s; per bucket exactly 1 K3 and 8 K4 launches;
+               ragged 3-track request (bucket 4), then 4-track requests
+               (one served twice: bit for bit equal), tracks/s, on the
+               deterministic and the default cuDNN algorithms; per bucket
+               exactly 1 K3 and 8 K4 launches;
 11. mf eval    the MF eval step at tl = 4, bs = 4, flow from the batch and
                from the primary disparity ("pred");
 12. mf train   the MF train step at 4 tracks x 4 frames, bf16, no remat,
@@ -81,6 +87,7 @@ path; every kernel but K5 must run on it):
                presave_flow (rigid); the SF worker (flow.hdf5); presave_disp
                single_frame, held to DisparityServer.infer; the MF worker
                (flow.hdf5, bf16, 4 blocks x 32); presave_disp multi_frame;
+               each presave_disp run twice, its files equal byte for byte;
                build_cache with primary_disp and pseudo_gt; the DIS-FTSF
                worker (--use_pseudo_gt True, rigid flow) from the cache and
                its retest. 3 train steps a worker; each stage's seconds and
@@ -92,15 +99,30 @@ path; every kernel but K5 must run on it):
                forward on a 4-track bucket (48 pairs) with the encoder's and
                the correlation's share; TrackDisparityServer without flow
                (3- and 4-track requests, tracks/s beside the caller-flow
-               rate, 1 K3 and 8 K4 launches a bucket, its run-to-run
-               difference, and equal to mf_forward on flow_all_pairs' flow
-               on deterministic cuDNN algorithms); the SF (bs 8) and MF (4
-               tracks, bf16)
+               rate and on the default cuDNN algorithms, 1 K3 and 8 K4
+               launches a bucket, a request served twice bit for bit equal,
+               and equal to mf_forward on flow_all_pairs' flow on the same
+               deterministic algorithms); the SF (bs 8) and MF (4 tracks,
+               bf16)
                train steps with --flow_source net (ms/step, the same launches
                as with file flow); presave_flow --provider learned and
                presave_disp multi_frame --flow_source net on phase 17's
                samples; 20 train_flow steps at crop 256x224 (finite loss,
                the saved file reloads, steps/s).
+19. plane scenes  16 samples of the port's plane-scene fixture at 512x432
+               with SGM disparities (host seconds a sample); the SF
+               objective at the GT disparity and at a constant 40 px (the
+               geometric component at the GT far below, with_stats' mask
+               shares, flow_consistency_sf); DIS-SF overfit on one batch
+               (bs 8, f32, Adam(1e-4), ~20 s): the photometric loss and
+               the disparity error fall, K1-K3 forward and backward
+               launched each step; train_val --data_type real
+               --device_augment False (2 epochs, warmup 1, bs 4: 10 train
+               components, the SGM terms on in epoch 0 and exactly 0 in
+               epoch 1, 6 test components), its retests with
+               --eval_metrics exact and device (equal statistics), and
+               the same run augmented on the device (s/epoch and the
+               loader's wait of both).
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -116,6 +138,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -288,6 +311,47 @@ def census_ties(es, ta, g, results) -> None:
               f"{name} disagrees with its plain version on ties: {err}")
         check(same, f"{name} gave other bits on a second call")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
+@contextmanager
+def default_cudnn_algorithms():
+    """The servers' forwards on cuDNN's default algorithms instead of the
+    deterministic ones (serve.CUDNN_FLAGS, read at each call): the forward
+    as it was before the servers fixed their algorithms (DispNet's
+    transposed convolutions back on conv_transpose2d)."""
+    from depthinspace_tpu_torch import serve
+    saved = serve.CUDNN_FLAGS
+    serve.CUDNN_FLAGS = dict(saved, deterministic=False)
+    try:
+        yield
+    finally:
+        serve.CUDNN_FLAGS = saved
+
+
+def serve_rates(call, n_items: int, reps: int = 5) -> dict:
+    """Items/s of ``call()`` (a request to a server) on the deterministic
+    cuDNN algorithms and on the default ones, in turns (deterministic,
+    default, deterministic, default), each a warm call and ``reps`` timed
+    ones; host clock (infer returns numpy)."""
+    secs = {"deterministic": 0.0, "default": 0.0}
+    for k in list(secs) * 2:
+        with (default_cudnn_algorithms() if k == "default"
+              else nullcontext()):
+            call()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            secs[k] += time.perf_counter() - t0
+    return {k: n_items * reps * 2 / v for k, v in secs.items()}
+
+
+def default_algorithms_diff(call) -> str:
+    """The run-to-run difference of ``call()`` (returning disparities in
+    px) on cuDNN's default algorithms (measured, not checked)."""
+    with default_cudnn_algorithms():
+        a, b = call(), call()
+    return (f"max |diff| {np.abs(a - b).max():.3g} px, unequal on "
+            f"{np.mean(a != b):.4f} of pixels")
 
 
 def grid_of(x, y):
@@ -845,19 +909,28 @@ def main() -> None:
     check(np.isfinite(out).all(), "serve output not finite")
     check(out.min() >= 0.0 and out.max() <= 128.0,
           f"serve output outside [0, 128]: {out.min()} .. {out.max()}")
+    # one request, one answer: the server's forward runs on deterministic
+    # cuDNN algorithms (serve.CUDNN_FLAGS)
+    check(np.array_equal(server.infer(images), out),
+          "SF serve: the same request served twice differs")
+    diff = default_algorithms_diff(lambda: server.infer(images))
+    ragged = serve_rates(lambda: server.infer(images), 13)
+    full = serve_rates(lambda: server.infer(images[:8]), 8)
     reps = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        server.infer(images)
-    ragged = 13 * reps / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        server.infer(images[:8])
-    full = 8 * reps / (time.perf_counter() - t0)
     print(f"[serve] out {out.shape} in [{out.min():.3f}, {out.max():.3f}] "
-          f"px; {ragged:.1f} maps/s on 13-image requests (buckets 8+8), "
-          f"{full:.1f} maps/s on 8-image requests; f32, TF32 off; {smi}")
+          f"px; served twice: equal; on the default algorithms {diff}; "
+          f"{ragged['deterministic']:.1f} maps/s on 13-image requests "
+          f"(buckets 8+8), {full['deterministic']:.1f} maps/s on 8-image "
+          f"requests; on the default algorithms (before the repair) "
+          f"{ragged['default']:.1f} and {full['default']:.1f}; f32, TF32 "
+          f"off; {smi}")
+    # where the deterministic algorithms spend the time: one 8-image
+    # bucket on each setting
+    profile_step(lambda b: server.infer(b), images[:8],
+                 "SF serve, 8-image bucket, deterministic cuDNN", GROUPS)
+    with default_cudnn_algorithms():
+        profile_step(lambda b: server.infer(b), images[:8],
+                     "SF serve, 8-image bucket, default cuDNN", GROUPS)
 
     # -- 5. eval step ------------------------------------------------------
     model.eval()
@@ -1054,6 +1127,8 @@ def main() -> None:
                           learned_flow_phase(settings, dev, smi, model, tb_np,
                                              mf_np, data, out))
 
+    plane_scene_phase(dev, smi)
+
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": mf_counts[name], **r}
@@ -1229,6 +1304,17 @@ def staged_pipeline_phase(settings, dev, smi, then=None) -> None:
             presave_disp.main([arch, "--epoch", "0", "--data_dir", str(data),
                                "--output_dir", str(out), *argv], device=dev)
 
+        def presave_twice(arch, *argv):
+            """presave_disp again: every sample's file has the same bytes
+            (its forwards run on deterministic cuDNN algorithms)."""
+            path = lambda n: data / n / f"{arch}_disp.hdf5"
+            first = {n: path(n).read_bytes() for n in written}
+            presave(arch, *argv)
+            same = [path(n).read_bytes() == first[n] for n in written]
+            print(f"[pipeline] presave_disp {arch} run twice: "
+                  f"{sum(same)} of {len(same)} files equal byte for byte")
+            check(all(same), f"presave_disp {arch} twice wrote other files")
+
         stage("presave_flow rigid", lambda: presave_flow.main(
             ["--provider", "rigid", "--data_dir", str(data)]))
         for name in written:
@@ -1260,6 +1346,7 @@ def staged_pipeline_phase(settings, dev, smi, then=None) -> None:
             cfg("single_frame", "file"), device=dev).do("retrain"))
         print(f"[pipeline] SF worker: {loader_wait('single_frame')}")
         stage("presave_disp single_frame", lambda: presave("single_frame"))
+        presave_twice("single_frame")
         # the hand-off against DisparityServer on the same images and
         # weights: within one u16 unit, unequal on <= 0.1 % of pixels (the
         # server's calls of 4 images against the tool's batch of 32)
@@ -1293,6 +1380,7 @@ def staged_pipeline_phase(settings, dev, smi, then=None) -> None:
                    lambda: presave("multi_frame", "--flow_source", "file"))
         for k in ("warp2d_fwd", "warp2d_pairs_fwd"):
             check(mp.get(k, 0) > 0, f"{k} never launched in the MF presave")
+        presave_twice("multi_frame", "--flow_source", "file")
         for name in written:
             with hdf5.File(data / name / "multi_frame_disp.hdf5") as f:
                 got = np.asarray(f["disp"])
@@ -1331,6 +1419,242 @@ def staged_pipeline_phase(settings, dev, smi, then=None) -> None:
               f"phase {time.perf_counter() - T0:.1f} s; {smi}")
         if then is not None:
             then(data, out)
+
+
+# phase 19: the plane-scene fixture at full width. The camera of make_settings
+# (focal 435.2 px) and a 0.25 m baseline put the GT disparity of the scenes'
+# planes (1.3-6 m away) at 22-78 px (measured on the CPU at 512x432)
+PLANE_N = 16
+PLANE_FOCAL = 435.2
+PLANE_BASELINE = 0.25
+# the SF geometric component at a constant 40 px over that at the GT
+# disparity: 78 measured on the CPU at fixture scale (128x108, focal and
+# disparities / 4, a constant 10 px), 347 at 512x432; the check asks for
+# half of the first
+GEO_RATIO_MIN = 39.0
+OVERFIT_S = 20.0                          # the overfit's budget, seconds
+# the overfit must take the photometric loss and the mean |disp - GT| below
+# these shares of their start: half the drops measured on the card (85
+# steps: 0.988x and 0.981x). The seeded init predicts ~6 px (the heads'
+# sigmoid(x - 3) * 128) against a GT of 20-80 px, and Adam(1e-4) moves
+# each weight at most 1e-4 a step, so 20 s of steps close little of it
+OVERFIT_PH_MAX = 0.994
+OVERFIT_DIST_MAX = 0.990
+
+
+def plane_scene_phase(dev, smi) -> None:
+    """Phase 19: plane scenes on the card. 16 samples of the port's fixture
+    (data/fixture.py) at 512x432 with SGM disparities; the SF objective at
+    the GT disparity and at a constant 40 px (the geometric component, its
+    masks' accept shares, one pair's flow_consistency_sf); DIS-SF overfit
+    on one fixed batch (bs 8, f32, Adam(1e-4)) for OVERFIT_S seconds, the
+    photometric loss and the disparity error falling; then train_val
+    --data_type real on the dataset, 2 epochs with the SGM warmup gate,
+    augmented on the host and, on the same split, on the device, and two
+    retests (--eval_metrics exact and device) that agree."""
+    import torch
+    import depthinspace_tpu_torch.config as config_mod
+    from depthinspace_tpu_torch import train_val
+    from depthinspace_tpu_torch.data import (TrackDataset, batch_to_torch,
+                                             collate, decode_batch,
+                                             decode_batch_np, encode_batch,
+                                             generate_dataset, load_settings)
+    from depthinspace_tpu_torch.losses import (flow_consistency_sf,
+                                               geometric_loss_sf)
+    from depthinspace_tpu_torch.models import DispNet, init_dispnet_
+    from depthinspace_tpu_torch.ops import disp_to_depth, kernels
+    from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
+                                              make_sf_eval_step,
+                                              make_sf_train_step)
+    from depthinspace_tpu_torch.train.objective import sf_losses
+    T0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # -- 19a. the dataset ----------------------------------------------
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        generate_dataset(data, n_samples=PLANE_N, imsize=(H, W),
+                         seed=SEED + 90, focal=PLANE_FOCAL,
+                         baseline=PLANE_BASELINE, write_sgm=True)
+        gen_s = (time.perf_counter() - t0) / PLANE_N
+        settings = load_settings(data / "settings.pkl")
+        paths = sorted(str(p) for p in data.glob("0*"))
+        ds = TrackDataset(settings, paths[:TRAIN_BS], train=False,
+                          load_flow=True)
+        enc = encode_batch(collate([ds[i] for i in range(TRAIN_BS)]))
+        gt = decode_batch_np(enc).disp_gt
+        print(f"[plane] {PLANE_N} plane-scene samples {H}x{W} (focal "
+              f"{PLANE_FOCAL} px, baseline {PLANE_BASELINE} m, SGM "
+              f"disparities): {gen_s:.2f} s a sample on the host; the first "
+              f"{TRAIN_BS}: GT disparity {gt.min():.1f} .. {gt.max():.1f} px")
+        check(gt.min() >= 10.0 and gt.max() <= 100.0,
+              f"plane-scene GT disparity {gt.min()} .. {gt.max()} px")
+
+        # -- 19b. the SF objective at the GT and at a constant -------------
+        batch = batch_to_torch(enc, dev)
+        bt = decode_batch(batch)
+        ctx = make_loss_context(settings, TL, device=dev)   # flow.hdf5's
+        geo = {}
+        kernels.reset_launches()
+        with torch.inference_mode():
+            for name, disp in (("the GT", bt.disp_gt),
+                               ("40 px", torch.full_like(bt.disp_gt, 40.0))):
+                o = disp.reshape(TL * TRAIN_BS, H, W, 1)
+                _, comps = sf_losses([o] * 4, bt, ctx, train=False)
+                depth = disp_to_depth(disp, ctx.focal_length, ctx.baseline)
+                _, stats = geometric_loss_sf(
+                    ctx.cam, depth, bt.R, bt.t, bt.flow, bt.ambient,
+                    clamp=ctx.geo_clamp, with_stats=True)
+                pair = flow_consistency_sf(
+                    ctx.cam, depth[0], depth[1], bt.R[0], bt.t[0], bt.R[1],
+                    bt.t[1], bt.flow[0, 1], bt.flow[1, 0], bt.ambient[0],
+                    bt.ambient[1], clamp=ctx.geo_clamp)
+                c = comps.cpu().numpy()
+                geo[name] = float(c[5])
+                check(np.isfinite(c).all() and np.isfinite(float(pair)),
+                      f"SF objective at {name}: {c}, pair {float(pair)}")
+                print(f"[plane] SF objective at {name}: components "
+                      f"{np.array2string(c, precision=6)}; masks accept "
+                      + ", ".join(f"{k} {float(v):.4f}"
+                                  for k, v in stats.items())
+                      + f"; flow_consistency_sf(0, 1) {float(pair):.6f}")
+        k3 = kernels.launches["warp2d_fwd"]
+        ratio = geo["40 px"] / geo["the GT"]
+        print(f"[plane] geometric component: {geo['the GT']:.3g} at the GT, "
+              f"{geo['40 px']:.3g} at 40 px ({ratio:.0f}x, at least "
+              f"{GEO_RATIO_MIN:.0f}x asked); K3 forward launches {k3}")
+        check(ratio >= GEO_RATIO_MIN,
+              f"geometric at the GT not far below 40 px: {ratio:.1f}x")
+        check(k3 == 2 * (2 + 2 + 2), f"K3 forward launches {k3}, expected "
+              "2 a geometric loss, with_stats call and pair, at 2 points")
+
+        # -- 19c. DIS-SF overfits one batch ---------------------------------
+        model = init_dispnet_(DispNet(max_disp=128.0),
+                              torch.Generator().manual_seed(SEED + 91))
+        state = TrainState.create(model, 1e-4, seed=SEED, device=dev)
+        step = make_sf_train_step(model, ctx, state)
+        ev = make_sf_eval_step(model, ctx)
+
+        def accuracy():
+            disp_u16, comps = ev(batch)
+            es = disp_u16.cpu().numpy().astype(np.float32) / 256.0
+            return float(np.mean(np.abs(es - gt)[gt > 0])), float(comps[0])
+
+        dist0, ph0 = accuracy()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while time.perf_counter() - t0 < OVERFIT_S:
+            comps = step(batch)
+            steps += 1
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        check(np.isfinite(comps.cpu().numpy()).all(), "overfit components")
+        dist1, ph1 = accuracy()
+        print(f"[plane] DIS-SF overfit, one batch (bs {TRAIN_BS}, tl {TL}, "
+              f"f32, TF32 off, Adam(1e-4), flow.hdf5): {steps} steps in "
+              f"{fit_s:.1f} s ({fit_s / steps * 1e3:.1f} ms/step); "
+              f"photometric {ph0:.5f} -> {ph1:.5f} ({ph1 / ph0:.3f}x, below "
+              f"{OVERFIT_PH_MAX}x asked); mean |disp - GT| {dist0:.3f} -> "
+              f"{dist1:.3f} px ({dist1 / dist0:.3f}x, below "
+              f"{OVERFIT_DIST_MAX}x asked); kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for name, per in PER_TRAIN_STEP.items():
+            check(counts[name] == per * steps,
+                  f"overfit: {counts[name]} launches of {name}, expected "
+                  f"{per} x {steps}")
+        check(ph1 < OVERFIT_PH_MAX * ph0,
+              f"overfit: photometric {ph0} -> {ph1}")
+        check(dist1 < OVERFIT_DIST_MAX * dist0,
+              f"overfit: disparity error {dist0} -> {dist1}")
+        del model, state, step, ev, batch, bt
+        torch.cuda.empty_cache()
+
+        # -- 19d. train_val --data_type real --------------------------------
+        args = ["--architecture", "single_frame", "--data_type", "real",
+                "--epochs", "2", "--warmup_epochs", "1",
+                "--train_batch_size", "4"]
+        saved_cfg = config_mod.DEFAULT_CONFIG_PATH
+
+        def run(out, *argv):
+            cfg = Path(tmp) / f"{out.name}.json"
+            cfg.write_text(json.dumps({"OUTPUT_DIR": str(out),
+                                       "DATA_DIR": str(data)}))
+            config_mod.DEFAULT_CONFIG_PATH = str(cfg)
+            try:
+                train_val.main(list(argv) + args, device=dev)
+            finally:
+                config_mod.DEFAULT_CONFIG_PATH = saved_cfg
+                close_logs()
+            return out / "single_frame"
+
+        def epochs_of(exp) -> str:
+            """s/epoch (train and test, from the log's clock) and the
+            loader's wait against the steps, of the last training run."""
+            log = (exp / "train.log").read_text().split("Start training")[-1]
+            ms = {}
+            for ln in log.splitlines():
+                for key in ("Train epoch 0", "Train epoch 1",
+                            "Finished training"):
+                    if ln.endswith(key):
+                        ms[key] = int(ln.split(":")[0])
+            waits = [ln.split("timings: ")[-1] for ln in log.splitlines()
+                     if "timings:" in ln]
+            e0 = (ms["Train epoch 1"] - ms["Train epoch 0"]) / 1e3
+            e1 = (ms["Finished training"] - ms["Train epoch 1"]) / 1e3
+            return (f"{e0:.2f} and {e1:.2f} s/epoch; loader wait / steps: "
+                    + "; ".join(waits))
+
+        t0 = time.perf_counter()
+        exp = run(Path(tmp) / "out_host", "--cmd", "retrain",
+                  "--device_augment", "False")
+        host_s = time.perf_counter() - t0
+        m = json.loads((exp / "metrics.json").read_text())
+        l0, l1 = m["0"]["train"]["loss"], m["1"]["train"]["loss"]
+        tl0 = m["0"]["test"]["0"]["loss"]
+        print(f"[plane] train_val --data_type real --device_augment False "
+              f"(2 epochs, bs 4; 14 train, 2 test samples) {host_s:.1f} s: "
+              f"{epochs_of(exp)}; train epoch 0 "
+              f"{np.array2string(np.array(l0), precision=5)}, epoch 1 "
+              f"{np.array2string(np.array(l1), precision=5)}")
+        check(len(l0) == len(l1) == 10 and np.isfinite(l0 + l1).all(),
+              f"real train components {l0} {l1}")
+        check(all(v > 0 for v in l0[6:]), f"SGM terms off in epoch 0: {l0}")
+        check(all(v == 0 for v in l1[6:]), f"SGM terms on in epoch 1: {l1}")
+        check(len(tl0) == 6 and np.isfinite(tl0).all(),
+              f"real test components {tl0}")
+        got = {}
+        for mode in ("exact", "device"):
+            t0 = time.perf_counter()
+            run(Path(tmp) / "out_host", "--cmd", "retest", "--epoch", "1",
+                "--eval_metrics", mode, "--device_augment", "False")
+            got[mode] = json.loads((exp / "metrics.json").read_text())[
+                "1"]["test"]["0"]
+            got[mode + " s"] = time.perf_counter() - t0
+        ex, dv = got["exact"], got["device"]
+        same = ("dist2_min", "dist2_max", "of0.1", "of0.5", "of1", "of2",
+                "of5")
+        print(f"[plane] retest of epoch 1, --eval_metrics exact "
+              f"({got['exact s']:.1f} s) / device ({got['device s']:.1f} s): "
+              + ", ".join(f"{k} {ex[k]:.6g} / {dv[k]:.6g}" for k in ex
+                          if k != "loss"))
+        check(all(dv[k] == ex[k] for k in same),
+              "device metric differs from the exact: "
+              + str({k: (dv[k], ex[k]) for k in same}))
+        check(all(abs(dv[k] - ex[k]) <= 1e-6 * abs(ex[k])
+                  for k in ("dist2_mean", "dist2_std")),
+              "device metric's mean or std differs from the exact")
+        check(all(abs(dv[k] - ex[k]) <= 1 / 256 + 1e-9 for k in
+                  ("dist2_median", "dist2_q10", "dist2_q90")),
+              "device metric's quantiles differ from the exact by more "
+              "than 1/256 px")
+        t0 = time.perf_counter()
+        exp_d = run(Path(tmp) / "out_device", "--cmd", "retrain",
+                    "--device_augment", "True")
+        print(f"[plane] the same with --device_augment True "
+              f"{time.perf_counter() - t0:.1f} s: {epochs_of(exp_d)}")
+    print(f"[plane] phase 19 {time.perf_counter() - T0:.1f} s; {smi}")
 
 
 FLOWNET = ROOT / "output" / "flownet.msgpack"
@@ -1373,7 +1697,8 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
                                                init_fusenet_)
     from depthinspace_tpu_torch.models.flownet import _correlation_nchw
     from depthinspace_tpu_torch.ops import kernels
-    from depthinspace_tpu_torch.serve import (TrackDisparityServer,
+    from depthinspace_tpu_torch.serve import (CUDNN_FLAGS,
+                                              TrackDisparityServer,
                                               lcn_input, mf_forward,
                                               sf_forward)
     from depthinspace_tpu_torch.data.wire import (decode_field, encode_unit,
@@ -1458,17 +1783,17 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
     per_bucket = {k: v for k, v in kernels.launches.items() if v}
     check(per_bucket == {"warp2d_fwd": 1, "warp2d_pairs_fwd": 8},
           f"serve with learned flow: launches {per_bucket}")
-    # run to run on the default cuDNN algorithms: DispNet's transposed
-    # convolutions may sum in another order each call, and FuseNet turns the
-    # primary's ulps into other neighbour choices (measured, not checked)
-    again = srv.infer(*req)
-    print(f"[flow serve] the same 4-track request twice, default cuDNN "
-          f"algorithms: max |diff| {np.abs(again - got).max():.4f} px, "
-          f"unequal on {np.mean(again != got):.4f} of pixels")
-    # the composition is held bit for bit on deterministic algorithms
-    torch.backends.cudnn.deterministic = True
-    got = srv.infer(*req)
-    with torch.inference_mode():
+    # one request, one answer: on cuDNN's default algorithms DispNet's
+    # transposed convolutions may sum in another order each call, and
+    # FuseNet turns the primary's ulps into other neighbour choices; the
+    # server runs on the deterministic ones (serve.CUDNN_FLAGS)
+    check(np.array_equal(srv.infer(*req), got),
+          "serve with learned flow: the same request served twice differs")
+    diff = default_algorithms_diff(lambda: srv.infer(*req))
+    print(f"[flow serve] the same 4-track request twice: equal; on the "
+          f"default cuDNN algorithms {diff}")
+    # and equal to its composition, bit for bit, on the same algorithms
+    with torch.inference_mode(), torch.backends.cudnn.flags(**CUDNN_FLAGS):
         # the server's arrays, strides included (a strided input can make
         # cuDNN pick another algorithm, and FuseNet turns ulps into choices)
         to = lambda v: torch.from_numpy(v).to(dev)
@@ -1481,7 +1806,6 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
                          flow_all_pairs(net, im_w, amb_w), srv.focal,
                          srv.baseline)
         ref = to_u16_disp(ref).cpu().numpy().astype(np.int64)
-    torch.backends.cudnn.deterministic = False
     dd = np.abs(np.rint(np.moveaxis(got, 0, 1) * 256).astype(np.int64) - ref)
     print(f"[flow serve] infer(flow=None) vs mf_forward on flow_all_pairs' "
           f"flow, deterministic cuDNN: max {dd.max()} u16 units, unequal on "
@@ -1504,6 +1828,11 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
         f"{k}: {r3:.2f} tracks/s on 3-track requests, {r4:.2f} on "
         f"{MF_TRACKS}-track ({ms:.1f} ms each)" for k, (r3, r4, ms)
         in rates.items()) + f"; FuseNet bf16, DispNet and FlowNet f32; {smi}")
+    full = serve_rates(lambda: srv.infer(*req), MF_TRACKS, reps=3)
+    print(f"[flow serve] learned flow, {MF_TRACKS}-track requests: "
+          f"{full['deterministic']:.2f} tracks/s on the deterministic "
+          f"algorithms, {full['default']:.2f} on the default ones (before "
+          f"the repair); {smi}")
     del srv, mf16
     torch.cuda.empty_cache()
 
@@ -1792,21 +2121,25 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     for name, n in per_bucket.items():
         want = {"warp2d_fwd": 1, "warp2d_pairs_fwd": 8}.get(name, 0)
         check(n == want, f"mf serve: {n} launches of {name}, expected {want}")
+    # one request, one answer (deterministic cuDNN algorithms)
+    got = srv.infer(*req)
+    check(np.array_equal(srv.infer(*req), got),
+          "mf serve with caller flow: the same request served twice differs")
+    diff = default_algorithms_diff(lambda: srv.infer(*req))
     reps = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         srv.infer(*(a[:3] for a in req))
     ragged = 3 * reps / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        srv.infer(*req)
-    full_s = (time.perf_counter() - t0) / reps
+    full = serve_rates(lambda: srv.infer(*req), MF_TRACKS, reps=3)
     print(f"[mf serve] out {out.shape} in [{out.min():.3f}, {out.max():.3f}]"
-          f" px; {ragged:.2f} tracks/s on 3-track requests (bucket 4), "
-          f"{MF_TRACKS / full_s:.2f} tracks/s on {MF_TRACKS}-track requests "
-          f"({full_s * 1e3:.1f} ms each); FuseNet bf16, DispNet f32, TF32 "
-          f"off; {smi}")
+          f" px; a {MF_TRACKS}-track request served twice: equal; on the "
+          f"default algorithms {diff}; {ragged:.2f} tracks/s on 3-track "
+          f"requests (bucket 4), {full['deterministic']:.2f} tracks/s on "
+          f"{MF_TRACKS}-track requests ({MF_TRACKS / full['deterministic'] * 1e3:.1f} ms "
+          f"each), {full['default']:.2f} on the default algorithms (before "
+          f"the repair); FuseNet bf16, DispNet f32, TF32 off; {smi}")
 
     # -- 11. mf eval ------------------------------------------------------
     mfb = batch_to_torch(mf_np, dev)

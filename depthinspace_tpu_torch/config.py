@@ -2,7 +2,7 @@
 from ``config.json`` (OUTPUT_DIR, DATA_DIR, ...) and the hyperparameters of
 the CLI (``utils/args.py``) in one dataclass. It has the JAX package's
 fields that this package uses; the CLI flags for machinery it does not have
-(the device mesh, the device metric) are parsed and dropped.
+(the device mesh, the warp kernels' shift bound) are parsed and dropped.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ class RunConfig:
     device_augment: bool = True
     wire_cache: bool = True                 # read <data_dir>/wire_cache
     test_frequency: int = 1                 # eval every N epochs
+    eval_metrics: str = "auto"              # auto | exact | device
     flow_source: str = "file"               # file | rigid | pred | net
     flow_params: str = ""                   # FlowNet msgpack for "net"
     photometric_pyramid: bool = False

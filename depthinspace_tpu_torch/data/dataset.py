@@ -11,10 +11,10 @@
   <DATA_DIR>/<sample>/multi_frame_disp.hdf5   disp (4,1,H,W)  (pseudo GT)
 
 with the same per-index RNG (a training sample takes a random permutation
-of its 4 frames). The files are read with ``data/hdf5.py`` (numpy alone),
-which maps each dataset and reads only the frames a sample takes. Host
-augmentation (``data/augment.py``, cv2) is not ported: the device
-augmentation of ``train/objective.py`` takes its place.
+of its 4 frames, then, with ``data_aug``, that RNG's host augmentation of
+each frame, ``data/augment.py``). The files are read with ``data/hdf5.py``
+(numpy alone), which maps each dataset and reads only the frames a sample
+takes.
 
 ``SyntheticTrackDataset`` serves in-memory samples made by
 ``data/synthetic.py`` with the same ``__getitem__`` dict, for runs without a
@@ -32,40 +32,60 @@ from typing import Sequence
 import numpy as np
 
 from . import hdf5
+from .augment import augment_frame
 from .batch import Batch
 from .settings import Settings
 from .synthetic import make_track_batch
 
 
-def _track_indices(dset, idx: int) -> np.ndarray:
+def _sample_rng(dset, idx: int) -> np.random.RandomState:
+    """Sample ``idx``'s RNG, seeded per index and epoch for a training
+    sample and per index for an evaluation one (the loader's threads never
+    draw from the global RNG)."""
+    return np.random.RandomState(
+        (dset.current_epoch + 1) * len(dset) + idx if dset.train else idx)
+
+
+def _track_indices(dset, idx: int, rng=None) -> np.ndarray:
     """The frames of sample ``idx``: a training sample takes a random
-    permutation of its 4 frames from an RNG seeded per index and epoch (the
-    loader's threads never draw from the global RNG); an evaluation sample
-    its first ``track_length``."""
+    permutation of its 4 frames from its RNG (``rng``, or a new
+    :func:`_sample_rng`); an evaluation sample its first
+    ``track_length``."""
     if not dset.train:
         return np.arange(dset.track_length)
-    rng = np.random.RandomState((dset.current_epoch + 1) * len(dset) + idx)
+    rng = _sample_rng(dset, idx) if rng is None else rng
     return rng.permutation(4)[:dset.track_length]
 
 
 class TrackDataset:
-    """Map-style dataset over per-sample directories of HDF5 files."""
+    """Map-style dataset over per-sample directories of HDF5 files.
+    ``data_aug`` augments each frame on the host with the sample's RNG
+    (``data/augment.py``) and the knobs below, the JAX dataset's
+    defaults."""
 
     def __init__(self, settings: Settings, sample_paths: Sequence[str],
                  track_length: int = 4, train: bool = True,
-                 load_flow: bool = False, load_primary: bool = False,
-                 load_pseudo_gt: bool = False, data_type: str = "synthetic"):
+                 data_aug: bool = False, load_flow: bool = False,
+                 load_primary: bool = False, load_pseudo_gt: bool = False,
+                 load_grad: bool = False, data_type: str = "synthetic"):
         if track_length > 4:
             raise ValueError("track_length must be at most 4")
         self.settings = settings
         self.sample_paths = [str(p) for p in sample_paths]
         self.track_length = track_length
         self.train = train
+        self.data_aug = data_aug
         self.load_flow = load_flow
         self.load_primary = load_primary
         self.load_pseudo_gt = load_pseudo_gt
+        self.load_grad = load_grad
         self.data_type = data_type
         self.current_epoch = 0
+        # augmentation knobs (the shear is off)
+        self.max_shift = 0.0
+        self.max_blur = 0.5
+        self.max_noise = 3.0
+        self.max_sp_noise = 0.0005
 
     def __len__(self):
         return len(self.sample_paths)
@@ -73,7 +93,8 @@ class TrackDataset:
     def __getitem__(self, idx: int) -> dict:
         path = self.sample_paths[idx]
         tl = self.track_length
-        track_ind = _track_indices(self, idx)
+        rng = _sample_rng(self, idx)
+        track_ind = _track_indices(self, idx, rng)
 
         def frames(f, key):
             return np.stack([f[key][i, 0] for i in track_ind]).astype(
@@ -88,6 +109,8 @@ class TrackDataset:
                 np.float32)
             ret["t"] = np.stack([f["t"][i] for i in track_ind]).astype(
                 np.float32)
+            if self.load_grad:
+                ret["grad"] = frames(f, "grad")
             if self.data_type == "real":
                 ret["sgm_disp"] = frames(f, "sgm_disp")
         if self.load_flow:
@@ -108,7 +131,23 @@ class TrackDataset:
             with hdf5.File(os.path.join(path,
                                         "multi_frame_disp.hdf5")) as f:
                 ret["pseudo_gt"] = frames(f, "disp")
+        if self.data_aug:
+            self._augment(ret, rng)
         return ret
+
+    def _augment(self, ret: dict, rng: np.random.RandomState) -> None:
+        """Each frame through ``augment_frame`` with the sample's RNG, in
+        frame order; the maps a sample does not carry stay None."""
+        maps = ("primary_disp", "sgm_disp", "grad")
+        for i in range(self.track_length):
+            out = augment_frame(
+                ret["im"][i], rng, amb=ret["ambient"][i], disp=ret["disp"][i],
+                **{k: ret[k][i] if k in ret else None for k in maps},
+                max_shift=self.max_shift, max_blur=self.max_blur,
+                max_noise=self.max_noise, max_sp_noise=self.max_sp_noise)
+            for k, v in zip(("im", "ambient", "disp") + maps, out):
+                if k in ret:
+                    ret[k][i] = v
 
 
 class SyntheticSource:
@@ -188,7 +227,7 @@ def collate(samples: Sequence[dict]) -> Batch:
         flow = np.stack([s["flow"] for s in samples], axis=2)
     return Batch(im=stack("im"), ambient=stack("ambient"),
                  disp_gt=stack("disp"), R=stack("R"), t=stack("t"), flow=flow,
-                 primary_disp=stack("primary_disp"),
+                 grad=stack("grad"), primary_disp=stack("primary_disp"),
                  pseudo_gt=stack("pseudo_gt"), sgm_disp=stack("sgm_disp"))
 
 

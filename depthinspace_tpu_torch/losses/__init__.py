@@ -1,4 +1,5 @@
 from .photometric import photometric_loss
 from .smoothness import smoothness_loss
-from .geometric import (CameraGeometry, geometric_loss_mf, geometric_loss_sf,
-                        pairwise_indices)
+from .geometric import (CameraGeometry, flow_consistency_mf,
+                        flow_consistency_sf, geometric_loss_mf,
+                        geometric_loss_sf, pairwise_indices)

@@ -1,7 +1,8 @@
 """Multi-view flow-consistency (geometric) losses, port of
 ``depthinspace_tpu/losses/geometric.py`` (``CameraGeometry``,
 ``pairwise_indices``, ``_ordered_directions``, ``geometric_loss_sf``,
-``geometric_loss_mf``).
+``geometric_loss_mf`` and the per-pair ``flow_consistency_sf``,
+``flow_consistency_mf``).
 
 For an ordered view pair (a -> b): unproject view-a depth with pose a and
 project it into view b (depth d1); sample view-b depth at the flow-displaced
@@ -11,7 +12,9 @@ test (vc) mask the pixels; each direction is a masked mean of its own, and
 the loss is their sum over all 2*C(tl,2) directions. The multi-frame
 variant clamps nothing and adds a third mask (rf): view b's primary depth,
 projected into view a and flow-warped back, must land within 1 px of where
-it started.
+it started. ``with_stats=True`` also returns the share of pixels each mask
+accepts, over all directions: whether a flow provider's error starves the
+loss (fb accepts ~0.7 px at zero motion).
 """
 
 from __future__ import annotations
@@ -92,14 +95,20 @@ def _directions(depth, R, t, flow, amb):
         a0=gather_dir(amb, a_idx), a1=gather_dir(amb, b_idx))
 
 
+def _mask_stats(**masks) -> dict:
+    """The mean of each boolean or 0/1 mask, a float32 scalar tensor."""
+    return {k: m.to(torch.float32).mean() for k, m in masks.items()}
+
+
 def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
-                      clamp: float = 0.1):
+                      clamp: float = 0.1, with_stats: bool = False):
     """Sum of the SF direction losses.
 
     depth/amb: (tl, N, H, W); R: (tl, N, 3, 3); t: (tl, N, 3);
     flow: (tl, tl, N, H, W, 2) with flow[i, j] the flow from frame i to j.
     All ordered directions are stacked and go through one K3 call per
-    channel count (1: the depth sample, 3: backward flow + ambient)."""
+    channel count (1: the depth sample, 3: backward flow + ambient).
+    ``with_stats``: (loss, {"fb", "vc", "accept"})."""
     g = _directions(depth, R, t, flow, amb)
     nd, N = len(g["dirs"]), depth.shape[1]
     Hh, Ww = cam.height, cam.width
@@ -129,18 +138,22 @@ def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
     # per-direction masked means (the reference normalizes per direction)
     diff = (diff * mask).reshape(nd, -1).sum(dim=1)
     msum = mask.reshape(nd, -1).sum(dim=1)
-    return torch.sum(diff / (msum + 1e-8))
+    loss = torch.sum(diff / (msum + 1e-8))
+    if with_stats:
+        return loss, _mask_stats(fb=fb, vc=vc, accept=mask)
+    return loss
 
 
 def geometric_loss_mf(cam: CameraGeometry, depth, R, t, flow, amb,
-                      primary_depth):
+                      primary_depth, with_stats: bool = False):
     """Sum of the MF direction losses: the SF directions without the clamp,
     with the primary-depth round-trip mask rf.
 
     depth/amb/primary_depth: (tl, N, H, W); R: (tl, N, 3, 3); t: (tl, N, 3);
     flow: (tl, tl, N, H, W, 2). One K3 call with C=1 (the depth sample, the
     only one with a gradient) and one with C=5 (backward flow, ambient and
-    the projected primary pixel)."""
+    the projected primary pixel). ``with_stats``: (loss, {"fb", "vc",
+    "rf", "accept"})."""
     g = _directions(depth, R, t, flow, amb)
     nd, N = len(g["dirs"]), depth.shape[1]
     Hh, Ww = cam.height, cam.width
@@ -171,4 +184,39 @@ def geometric_loss_mf(cam: CameraGeometry, depth, R, t, flow, amb,
 
     diff = (diff * mask).reshape(nd, -1).sum(dim=1)
     msum = mask.reshape(nd, -1).sum(dim=1)
-    return torch.sum(diff / (msum + 1e-8))
+    loss = torch.sum(diff / (msum + 1e-8))
+    if with_stats:
+        return loss, _mask_stats(fb=fb, vc=vc, rf=rf, accept=mask)
+    return loss
+
+
+def _pair_track(depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1):
+    """One view pair as a track of 2 frames, whose directions are (0, 1)
+    then (1, 0): flow[0, 1] = flow0, flow[1, 0] = flow1 (the diagonal,
+    which no direction reads, zero)."""
+    z = torch.zeros_like(flow0)
+    flow = torch.stack([torch.stack([z, flow0]), torch.stack([flow1, z])])
+    st = lambda a, b: torch.stack([a, b])
+    return (st(depth0, depth1), st(R0, R1), st(t0, t1), flow,
+            st(amb0, amb1))
+
+
+def flow_consistency_sf(cam: CameraGeometry, depth0, depth1, R0, t0, R1, t1,
+                        flow0, flow1, amb0, amb1, clamp: float = 0.1):
+    """The symmetrized SF loss of one view pair: the masked mean of
+    direction 0 -> 1 plus that of 1 -> 0. depth/amb: (N, H, W); flow0 (0 ->
+    1) and flow1 (1 -> 0): (N, H, W, 2); R: (N, 3, 3); t: (N, 3)."""
+    return geometric_loss_sf(cam, *_pair_track(
+        depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1),
+        clamp=clamp)
+
+
+def flow_consistency_mf(cam: CameraGeometry, depth0, depth1, R0, t0, R1, t1,
+                        flow0, flow1, amb0, amb1, primary_depth0,
+                        primary_depth1):
+    """The symmetrized MF loss of one view pair, with the rf mask of each
+    direction's target view's primary depth; shapes as
+    :func:`flow_consistency_sf`."""
+    return geometric_loss_mf(cam, *_pair_track(
+        depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1),
+        torch.stack([primary_depth0, primary_depth1]))

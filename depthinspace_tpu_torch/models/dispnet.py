@@ -16,7 +16,9 @@ both sides, and a stride-2 conv pads pad_total = max((ceil(n/2) - 1) * 2 +
 k - n, 0) split as (pad_total // 2, rest), which depends on the parity of
 the input size n (odd sizes pad evenly). A flax stride-2 "SAME"
 ConvTranspose(3) is torch's conv_transpose2d with the kernel flipped
-spatially, no padding, cropped to 2n.
+spatially, no padding, cropped to 2n (on the card under deterministic
+cuDNN algorithms, as a 2x2 convolution and a pixel shuffle:
+``SameConvTranspose2d``).
 """
 
 from __future__ import annotations
@@ -47,16 +49,49 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
+# kernel row (column) of output parity a and input offset u: output row
+# 2i + a sums input rows i - 1 (u = 0) and i (u = 1), with kernel rows 2 and
+# 0 for a = 0, and none (the zero row 3) and 1 for a = 1
+_PARITY_TAPS = torch.tensor([[2, 0], [3, 1]])
+
+
 class SameConvTranspose2d(nn.ConvTranspose2d):
-    """flax ``nn.ConvTranspose(k, strides=2, padding="SAME")``. The weight is
-    stored already flipped (torch's convention); output is (2h, 2w)."""
+    """flax ``nn.ConvTranspose(3, strides=2, padding="SAME")``. The weight is
+    stored already flipped (torch's convention); output is (2h, 2w).
+
+    torch's conv_transpose2d cropped to (2h, 2w). On a CUDA tensor with
+    cuDNN's deterministic algorithms on (the servers' and presave_disp's
+    forwards, ``serve.CUDNN_FLAGS``) the same function runs as a 2x2
+    convolution of the input padded by one row and column at the top and
+    left, into 4x the channels (channel c of output parity (a, b) at
+    4c + 2a + b), then a pixel shuffle: cuDNN computes a transposed
+    convolution with a backward-data kernel whose deterministic algorithm
+    is slow (at the last decoder stage it took most of a server's
+    forward), and a convolution's deterministic algorithms are its fast
+    ones. Training, on the default algorithms, keeps conv_transpose2d."""
 
     def __init__(self, cin: int, cout: int, k: int = 3):
+        if k != 3:
+            raise ValueError("SameConvTranspose2d takes 3x3 kernels")
         super().__init__(cin, cout, k, stride=2, padding=0)
 
     def forward(self, x):
+        if x.is_cuda and torch.backends.cudnn.deterministic:
+            return self.as_convolution(x)
         h, w = x.shape[2], x.shape[3]
         return super().forward(x)[:, :, :2 * h, :2 * w]
+
+    def as_convolution(self, x):
+        """The forward as a 2x2 convolution and a pixel shuffle."""
+        cin, cout = self.weight.shape[:2]
+        taps = _PARITY_TAPS.to(x.device)
+        # (cin, cout, a, b, u, v) -> (cout * 4, cin, u, v)
+        w = F.pad(self.weight, (0, 1, 0, 1))[
+            :, :, taps[:, None, :, None], taps[None, :, None, :]]
+        w = w.permute(1, 2, 3, 0, 4, 5).reshape(cout * 4, cin, 2, 2)
+        y = F.conv2d(F.pad(x, (1, 0, 1, 0)), w,
+                     self.bias.repeat_interleave(4))
+        return F.pixel_shuffle(y, 2)
 
 
 class SigmoidAffineHead(nn.Module):

@@ -18,11 +18,16 @@ start of each step; the test metrics score the disparity against the
 decoded GT. The wire cache (``data/cache.py``) is read where the JAX worker
 reads it (:meth:`Worker.cached_dataset`).
 
-Departures, each because the machinery is not ported: no device mesh (one
-card), the exact host metrics for every split size (the JAX package
-streams large splits through an on-device accumulator), no debug images or
-errs.png, and no geo_oor_frac (this package's flow warp drops no flow
-beyond a shift bound).
+The test metrics take the JAX worker's rule (``--eval_metrics``): the
+exact host metrics, or for ``device`` (and ``auto`` on a split of more
+than 64 samples) ``utils/metric.py::StreamingEvalMetric``, a histogram on
+the device. ``--device_augment False`` augments the training samples on
+the host (``data/augment.py``), as the JAX worker does.
+
+Departures: no device mesh (one card); no debug images or errs.png (not
+ported yet); no geo_oor_frac (the JAX warp kernels drop flow beyond
++-max_shift and that metric counts it; this package's flow warp drops
+none).
 """
 
 from __future__ import annotations
@@ -106,13 +111,7 @@ class Worker:
         logging.info(f"device: {self.device}"
                      + (f" ({torch.cuda.get_device_name(self.device)})"
                         if self.device.type == "cuda" else ""))
-        logging.info("eval metrics: exact host metrics for every split "
-                     "size (the on-device accumulator is not ported)")
 
-        if not cfg.device_augment:
-            raise NotImplementedError(
-                "host augmentation (cv2) is not ported; use "
-                "--device_augment True")
         if cfg.flow_source == "rigid" and cfg.data_type != "synthetic":
             raise ValueError("--flow_source rigid needs GT disparity "
                              "(synthetic data)")
@@ -228,7 +227,8 @@ class Worker:
     def _dataset(self, samples, train: bool):
         """The split's dataset: the wire cache where
         :meth:`cached_dataset` takes it, else HDF5, with optical flow from
-        flow.hdf5 when flow_source is "file"; DIS-MF adds the primary
+        flow.hdf5 when flow_source is "file" and a train split augmented on
+        the host without device augmentation; DIS-MF adds the primary
         disparities, and its test sets alone the pseudo GT; in-memory
         samples when the worker has a source."""
         mf = self.architecture == "multi_frame"
@@ -238,6 +238,10 @@ class Worker:
             if self.cfg.use_pseudo_gt or self.cfg.data_type == "real":
                 raise ValueError("in-memory synthetic samples carry no "
                                  "pseudo GT and no SGM disparities")
+            if not self.cfg.device_augment:
+                raise ValueError("in-memory synthetic samples are not "
+                                 "augmented on the host: use "
+                                 "--device_augment True")
             return SyntheticTrackDataset(
                 self.source, samples, track_length=self.cfg.track_length,
                 train=train, load_flow=load_flow, load_primary=mf)
@@ -247,6 +251,7 @@ class Worker:
             return cached
         return TrackDataset(
             self.settings, samples, train=train,
+            data_aug=train and not self.cfg.device_augment,
             track_length=self.cfg.track_length, load_flow=load_flow,
             load_primary=mf, load_pseudo_gt=load_pseudo_gt,
             data_type=self.cfg.data_type)
@@ -389,18 +394,29 @@ class Worker:
     def test_epoch(self, epoch, set_idx, eval_step, dset):
         dset.current_epoch = epoch
         loader = self._loader(dset, self.cfg.test_batch_size, train=False)
-        met = metric_lib.MultipleMetric(
-            metric_lib.DistanceMetric(vec_length=1),
-            metric_lib.OutlierFractionMetric(
-                vec_length=1, thresholds=[0.1, 0.5, 1, 2, 5]))
+        # the exact host metrics copy every batch's disparities to the host
+        # and keep every per-pixel distance; the device histogram streams
+        # the same statistics at wire resolution (the JAX worker's rule)
+        mode = self.cfg.eval_metrics
+        on_device = mode == "device" or (mode == "auto" and len(dset) > 64)
+        if on_device:
+            met = metric_lib.StreamingEvalMetric()
+        else:
+            met = metric_lib.MultipleMetric(
+                metric_lib.DistanceMetric(vec_length=1),
+                metric_lib.OutlierFractionMetric(
+                    vec_length=1, thresholds=[0.1, 0.5, 1, 2, 5]))
         loss_acc, n = None, 0
         for batch_idx, (host, batch) in enumerate(loader):
             disp0, comps = eval_step(batch, epoch)
-            # u16 x256 fixed point against the decoded GT, as the JAX worker
-            es = decode_disp_np(disp0.cpu().numpy())
-            gt = decode_batch_np(host).disp_gt
-            es = es * (gt > 0)
-            met.add(es.reshape(-1, 1), gt.reshape(-1, 1))
+            if on_device:
+                met.add(disp0, batch.disp_gt, disp0.shape[1])
+            else:
+                # u16 x256 against the decoded GT, as the JAX worker
+                es = decode_disp_np(disp0.cpu().numpy())
+                gt = decode_batch_np(host).disp_gt
+                es = es * (gt > 0)
+                met.add(es.reshape(-1, 1), gt.reshape(-1, 1))
             loss_acc = comps if loss_acc is None else loss_acc + comps
             n += 1
             if batch_idx % 25 == 0:

@@ -12,6 +12,8 @@ file). Runs on the CUDA card and refuses to start without one. DIS-MF reads
 the DIS-SF predictions from each sample's single_frame_disp.hdf5, and
 DIS-FTSF (``--use_pseudo_gt True``, single_frame only, as in the JAX CLI)
 the DIS-MF ones from multi_frame_disp.hdf5 (``tools/presave_disp.py``).
+``main(argv, device=None)``: the card; ``device="cpu"`` only when asked
+for.
 """
 
 from __future__ import annotations
@@ -24,14 +26,14 @@ from .train.single_frame import SingleFrameWorker
 from .utils.args import parse_args
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     args = parse_args(argv)
     if args.architecture == "multi_frame" and args.use_pseudo_gt:
         print("use_pseudo_gt is only applicable to the single_frame model")
         sys.exit(1)
     worker_cls = (MultiFrameWorker if args.architecture == "multi_frame"
                   else SingleFrameWorker)
-    worker = worker_cls(RunConfig.from_args(args))
+    worker = worker_cls(RunConfig.from_args(args), device=device)
     worker.do(args.cmd, epoch=args.epoch)
 
 

@@ -41,7 +41,7 @@ def parse_args(argv=None):
     add("--use_pseudo_gt", help="Only applicable in single-frame model",
         default=False, type=str2bool)
     add("--device_augment", help="Augment the training batches on the "
-        "device (host augmentation is not ported: False is refused)",
+        "device (False: each sample on the host, data/augment.py)",
         default=True, type=str2bool)
     add("--photometric_pyramid", help="Compute the scale-s photometric loss "
         "at 1/2^s resolution", default=False, type=str2bool)
@@ -53,8 +53,9 @@ def parse_args(argv=None):
         type=int)
     add("--test_batch_size", help="Eval batch size", default=4, type=int)
     add("--eval_metrics", default="auto", choices=["auto", "exact", "device"],
-        help="Accepted for compatibility; this package computes the exact "
-             "host metrics for every split")
+        help="exact: host metrics on every pixel distance; device: a "
+             "histogram on the device at wire resolution (1/256 px); auto: "
+             "device for test splits of more than 64 samples")
     add("--flow_source", default="file",
         choices=["file", "rigid", "net", "pred"],
         help="file: flow.hdf5; rigid: from GT disparity + poses (synthetic "

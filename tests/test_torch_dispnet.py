@@ -66,6 +66,10 @@ def test_conv_and_conv_transpose_match_flax(n):
     out = tu(xt).permute(0, 2, 3, 1).detach().numpy()
     assert out.shape == ref.shape == (2, 2 * n, 2 * (n + 3), 5)
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    # the same function as a 2x2 convolution and a pixel shuffle (the
+    # card's path under deterministic cuDNN algorithms)
+    out = tu.as_convolution(xt).permute(0, 2, 3, 1).detach().numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 
 def test_converter_layout(jax_dispnet):

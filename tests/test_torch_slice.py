@@ -120,7 +120,9 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     worker; a dataset directory written through data/hdf5.py, read back by
     TrackDataset, and presave_disp single_frame over it; then FuseNet, one
     DIS-MF train step and one TrackDisparityServer request, with the flow
-    given and with output/flownet.msgpack's FlowNet computing it."""
+    given and with output/flownet.msgpack's FlowNet computing it; a
+    plane-scene fixture generated, read back with host augmentation, one
+    augment_frame with the shear, and one StreamingEvalMetric update."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -268,6 +270,27 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         out = srv.infer(mv(mb.im), mv(mb.ambient), mv(mb.R), mv(mb.t))
         assert out.shape == (1, 4, 32, 24) and np.isfinite(out).all()
         mark("track server with FlowNet's flow")
+        from depthinspace_tpu_torch.data import (augment_frame,
+                                                 generate_dataset)
+        from depthinspace_tpu_torch.utils.metric import StreamingEvalMetric
+        fx = Path(sys.argv[1]) / "fixture"
+        generate_dataset(fx, n_samples=1, imsize=(32, 24), write_sgm=True)
+        fds = TrackDataset(s, [str(fx / "00000000")], train=True,
+                           data_aug=True, load_grad=True, data_type="real")
+        smp = fds[0]
+        assert smp["sgm_disp"].shape == (4, 32, 24)
+        assert np.isfinite(smp["im"]).all() and np.isfinite(smp["grad"]).all()
+        aug = augment_frame(smp["im"][0], np.random.RandomState(0),
+                            amb=smp["ambient"][0], disp=smp["disp"][0],
+                            max_shift=64.0)
+        assert aug[0].shape == (32, 24) and np.isfinite(aug[2]).all()
+        mark("plane-scene fixture and host augmentation")
+        met = StreamingEvalMetric()
+        es = torch.from_numpy(wire.encode_disp(smp["disp"][:, None] + 0.5))
+        gt = torch.from_numpy(wire.encode_disp(smp["disp"][:, None]))
+        met.add(es, gt, 1)
+        assert abs(met.get()["dist2_mean"] - 0.5) < 1e-2
+        mark("streaming eval metric")
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)

@@ -222,12 +222,12 @@ def _jax_dataset(arch, cfg, settings, paths, train):
 
 def _describe(dset):
     """What a dataset reads: the cache and its fields, or HDF5 and what it
-    loads."""
+    loads, and whether it augments on the host."""
     if isinstance(dset, (CachedTrackDataset, JaxCached)):
         return ("cache", tuple(sorted(dset.fields)), dset.train,
                 len(dset))
     return ("hdf5", dset.load_flow, dset.load_primary, dset.load_pseudo_gt,
-            dset.train, len(dset.sample_paths))
+            dset.train, dset.data_aug, len(dset.sample_paths))
 
 
 @pytest.mark.parametrize("arch,pseudo", [("single_frame", False),
