@@ -123,6 +123,22 @@ path; every kernel but K5 must run on it):
                --eval_metrics exact and device (equal statistics), and
                the same run augmented on the device (s/epoch and the
                loader's wait of both).
+20. generated data  the port's create_syn_data on the card machine's host:
+               the renderer built from native/render.cpp (seconds, path,
+               os.cpu_count()); 16 default samples at 512x432 with
+               procedural objects, once in one process (s a sample) and
+               once as 4 processes over --start ranges started together
+               (aggregate samples/s; the same bytes as the one process);
+               2 --textured samples (the ambient varies from pixel to
+               pixel where the untextured does not); 2 real samples (a
+               1280x1080 render post-processed to 512x432, sgm_disp); every
+               field's shape, dtype and finiteness, the covered share and
+               the disparity range; then the port's CLI on the 16 samples
+               (test split: the first quarter): presave_flow rigid,
+               train_val single_frame (bs 4, 3 steps) and its retest,
+               presave_disp single_frame, train_val multi_frame (bf16, bs
+               4, 3 steps) and its retest, each stage's seconds, K1-K3
+               (SF) and K1-K4 (MF) launched forward and backward.
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -132,6 +148,7 @@ kernels' results (launches on the MF path), and {"ok": true, "device":
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import subprocess
 import sys
@@ -1128,6 +1145,7 @@ def main() -> None:
                                              mf_np, data, out))
 
     plane_scene_phase(dev, smi)
+    generated_data_phase(dev, smi)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1656,6 +1674,211 @@ def plane_scene_phase(dev, smi) -> None:
               f"{time.perf_counter() - t0:.1f} s: {epochs_of(exp_d)}")
     print(f"[plane] phase 19 {time.perf_counter() - T0:.1f} s; {smi}")
 
+
+# phase 20: samples of the port's create_syn_data, made on the card
+# machine's host: GEN_N default ones in one process and again in GEN_PROCS
+# processes over --start ranges, GEN_SMALL textured and real ones
+GEN_N = 16
+GEN_PROCS = 4
+GEN_SMALL = 2
+GEN_TIMEOUT_S = 300
+# --textured: the median step of the ambient between covered horizontal
+# neighbours, at least this and GEN_TEX_RATIO times the untextured one's
+# (measured on a CPU at 512x432: 0.0059-0.0066 textured, 0-0.00027 not)
+GEN_TEX_MIN = 2e-3
+GEN_TEX_RATIO = 5.0
+GEN_FIELDS = {"im": (4, 1, H, W), "ambient": (4, 1, H, W),
+              "grad": (4, 1, H, W), "disp": (4, 1, H, W), "R": (4, 3, 3),
+              "t": (4, 3)}
+
+
+def generate(d: Path, ranges, *flags) -> tuple[float, list]:
+    """create_syn_data as one process per (start, end) range, all started
+    together; returns the wall seconds and each sample's seconds as the
+    tool prints them. Every process is waited for or killed."""
+    cmd = [sys.executable, "-m", "depthinspace_tpu_torch.tools.create_syn_data",
+           *flags, "--objects", "procedural", "--data_dir", str(d)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--start", str(a), "--n_samples",
+                                     str(b)], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for a, b in ranges]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GEN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"create_syn_data {flags} exited "
+              f"{p.returncode}:\n{out[-3000:]}")
+    took = [float(ln.split(" took ")[1].rstrip("s")) for out in outs
+            for ln in out.splitlines() if ln.startswith("sample ")]
+    check(len(took) == sum(b - a for a, b in ranges),
+          f"create_syn_data {flags} wrote {len(took)} samples")
+    return wall, took
+
+
+def read_samples(d: Path) -> dict:
+    from depthinspace_tpu_torch.data import hdf5
+    out = {}
+    for p in sorted(d.glob("0*")):
+        with hdf5.File(p / "frames.hdf5") as f:
+            out[p.name] = {k: np.asarray(f[k]) for k in f.keys()}
+    return out
+
+
+def check_fields(samples: dict, what: str, sgm: bool = False) -> str:
+    """Shapes, dtypes and finiteness of every field; the covered share of
+    each frame and the disparity range, as a line of text."""
+    want = dict(GEN_FIELDS, **({"sgm_disp": (4, 1, H, W)} if sgm else {}))
+    covered, lo, hi = [], np.inf, 0.0
+    for name, fr in samples.items():
+        check(sorted(fr) == sorted(want), f"{what} {name} fields {sorted(fr)}")
+        for k, shape in want.items():
+            check(fr[k].shape == shape and fr[k].dtype == np.float32
+                  and np.isfinite(fr[k]).all(),
+                  f"{what} {name} {k}: {fr[k].shape} {fr[k].dtype}")
+        disp = fr["disp"][:, 0]
+        covered += [float(np.mean(f > 0)) for f in disp]
+        lo, hi = min(lo, float(disp[disp > 0].min())), max(hi,
+                                                           float(disp.max()))
+    check(min(covered) > 0.5, f"{what}: a frame covered {min(covered)}")
+    return (f"covered share of a frame >= {min(covered):.4f}; disparity "
+            f"{lo:.2f} .. {hi:.2f} px")
+
+
+def ambient_texture(fr: dict) -> float:
+    """Median |ambient step| between horizontal neighbours both covered."""
+    amb, cov = fr["ambient"][:, 0], fr["disp"][:, 0] > 0
+    both = cov[:, :, 1:] & cov[:, :, :-1]
+    return float(np.median(np.abs(np.diff(amb, axis=2))[both]))
+
+
+def generated_data_phase(dev, smi) -> None:
+    """Phase 20: the port makes its own dataset on the card machine's host
+    (tools/create_syn_data.py; the renderer built from native/render.cpp),
+    and the port's CLI trains DIS-SF and DIS-MF on it on the card."""
+    import os
+    import torch
+    import depthinspace_tpu_torch.config as config_mod
+    from depthinspace_tpu_torch import train_val
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.render import renderer
+    from depthinspace_tpu_torch.tools import presave_disp, presave_flow
+    T0 = time.perf_counter()
+    so, build_s = renderer.build()
+    print(f"[gen] renderer built from {renderer.SOURCE.relative_to(ROOT)} in "
+          f"{build_s:.2f} s ({' '.join(renderer.CXX_FLAGS)}): "
+          f"{so.relative_to(ROOT)}; os.cpu_count() {os.cpu_count()}")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # -- 20a. the dataset, in one process and in GEN_PROCS --------------
+        one = tmp / "one"
+        wall1, took1 = generate(one, [(0, GEN_N)])
+        print(f"[gen] {GEN_N} default samples {H}x{W}, one process: "
+              f"{wall1:.1f} s ({np.median(took1):.3f} s a sample, median; "
+              f"set-up {wall1 - sum(took1):.1f} s); host figures; {smi}")
+        many = tmp / "many"
+        step = GEN_N // GEN_PROCS
+        wall4, took4 = generate(many, [(i, i + step)
+                                       for i in range(0, GEN_N, step)])
+        print(f"[gen] {GEN_N} default samples, {GEN_PROCS} processes over "
+              f"--start ranges: {wall4:.1f} s, {GEN_N / wall4:.3f} samples/s "
+              f"aggregate ({np.median(took4):.3f} s a sample, median; one "
+              f"process {GEN_N / wall1:.3f} samples/s); host figures")
+        files = sorted(p.relative_to(one) for p in one.rglob("*")
+                       if p.is_file())
+        check(len(files) == GEN_N + 1 and files == sorted(
+            p.relative_to(many) for p in many.rglob("*") if p.is_file())
+            and all((one / f).read_bytes() == (many / f).read_bytes()
+                    for f in files),
+              "the processes' samples differ from the one process's")
+        samples = read_samples(one)
+        digest = hashlib.sha256((one / "00000000" / "frames.hdf5")
+                                .read_bytes()).hexdigest()
+        print(f"[gen] {GEN_PROCS} processes wrote the one process's bytes; "
+              f"{check_fields(samples, 'default')}; sample 0's frames.hdf5 "
+              f"sha256 {digest}")
+        tex_dir = tmp / "textured"
+        wall_t, _ = generate(tex_dir, [(0, GEN_SMALL)], "--textured")
+        tex = [ambient_texture(fr) for fr in read_samples(tex_dir).values()]
+        flat = [ambient_texture(samples[f"{i:08d}"]) for i in range(GEN_SMALL)]
+        print(f"[gen] {GEN_SMALL} --textured samples {wall_t:.1f} s; ambient "
+              f"step over covered neighbours (median): textured "
+              f"{', '.join(f'{v:.5f}' for v in tex)}, untextured "
+              f"{', '.join(f'{v:.5f}' for v in flat)}")
+        check(min(tex) >= GEN_TEX_MIN and min(tex) > GEN_TEX_RATIO * max(flat),
+              f"--textured ambient carries no texture: {tex} vs {flat}")
+        real = tmp / "real"
+        wall_r, took_r = generate(real, [(0, GEN_SMALL)], "real")
+        print(f"[gen] {GEN_SMALL} real samples (1280x1080 renders "
+              f"post-processed to {H}x{W}): {wall_r:.1f} s, "
+              f"{np.median(took_r):.3f} s a sample; "
+              f"{check_fields(read_samples(real), 'real', sgm=True)}")
+
+        # -- 20b. the port's CLI trains on the samples ----------------------
+        out = tmp / "out"
+        saved_cfg = config_mod.DEFAULT_CONFIG_PATH
+        cfg = tmp / "config.json"
+        cfg.write_text(json.dumps({"OUTPUT_DIR": str(out),
+                                   "DATA_DIR": str(one)}))
+        stage_s = {}
+
+        def stage(name, fn, reach=()):
+            kernels.reset_launches()
+            config_mod.DEFAULT_CONFIG_PATH = str(cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                fn()
+                torch.cuda.synchronize()
+            finally:
+                config_mod.DEFAULT_CONFIG_PATH = saved_cfg
+                close_logs()
+            stage_s[name] = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launches.items() if v}
+            print(f"[gen] {name}: {stage_s[name]:.2f} s; kernel launches "
+                  f"{counts}")
+            for k in reach:
+                check(counts.get(k, 0) > 0, f"{k} never launched in {name}")
+
+        steps = ["--epochs", "1", "--train_batch_size", "4",
+                 "--max_train_iter", "3"]
+        stage("presave_flow rigid", lambda: presave_flow.main(
+            ["--provider", "rigid", "--data_dir", str(one)]))
+        stage("train_val single_frame", lambda: train_val.main(
+            ["--architecture", "single_frame", "--cmd", "retrain", *steps],
+            device=dev), K1_K3)
+        stage("train_val single_frame retest", lambda: train_val.main(
+            ["--architecture", "single_frame", "--cmd", "retest",
+             "--epoch", "0"], device=dev))
+        stage("presave_disp single_frame", lambda: presave_disp.main(
+            ["single_frame", "--epoch", "0", "--data_dir", str(one),
+             "--output_dir", str(out)], device=dev))
+        stage("train_val multi_frame", lambda: train_val.main(
+            ["--architecture", "multi_frame", "--cmd", "retrain",
+             "--mf_dtype", "bfloat16", *steps], device=dev), K1_K4)
+        stage("train_val multi_frame retest", lambda: train_val.main(
+            ["--architecture", "multi_frame", "--cmd", "retest",
+             "--epoch", "0"], device=dev))
+        for arch, n_comps in (("single_frame", 6), ("multi_frame", 3)):
+            m = json.loads((out / arch / "metrics.json").read_text())["0"]
+            loss, test = m["train"]["loss"], m["test"]["0"]
+            check(np.isfinite(loss).all() and len(test["loss"]) == n_comps
+                  and np.isfinite(test["loss"]).all(),
+                  f"{arch} metrics {m}")
+            print(f"[gen] {arch} on generated data: train components "
+                  f"{np.array2string(np.array(loss), precision=5)}; retest "
+                  f"of epoch 0: loss {sum(test['loss']):.5f}, dist2_mean "
+                  f"{test['dist2_mean']:.3f} px, of1 {test['of1']:.4f}")
+    print(f"[gen] phase 20 {time.perf_counter() - T0:.1f} s (generation "
+          f"{wall1 + wall4 + wall_t + wall_r:.1f} s, CLI "
+          f"{sum(stage_s.values()):.1f} s); {smi}")
 
 FLOWNET = ROOT / "output" / "flownet.msgpack"
 FLOW_CROP = (256, 224)                    # train_flow's default crop

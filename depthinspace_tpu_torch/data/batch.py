@@ -7,7 +7,6 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
-import torch
 
 
 class Batch(NamedTuple):
@@ -32,6 +31,8 @@ def batch_to_torch(batch: Batch, device) -> Batch:
     fields of the wire encoding (``data/wire.py``) keep their dtype, so
     they cross to the device at half the bytes and ``wire.decode_batch``
     decodes them there; every other field as float32."""
+    import torch      # here: the host tools import this module without it
+
     def conv(v):
         if v is None:
             return None

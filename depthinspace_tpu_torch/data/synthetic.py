@@ -23,17 +23,20 @@ from __future__ import annotations
 import numpy as np
 
 from .batch import Batch
+from .imgproc import _fma
 from .settings import Settings
 
 
 def _blur3_reflect101(x: np.ndarray, sigma: float) -> np.ndarray:
-    """cv2.GaussianBlur(x, (3, 3), sigma) for a 2-D float32 image."""
+    """cv2.GaussianBlur(x, (3, 3), sigma) for a 2-D float32 image of dots
+    (0 and 1): the column pass is cv2's, ``fma(u + d, k1, m * k0)``, and
+    on such an image the row pass rounds as cv2's does, so the result is
+    cv2's bit for bit."""
     k = np.exp(-np.arange(-1.0, 2.0) ** 2 / (2.0 * sigma * sigma))
     k = (k / k.sum()).astype(np.float32)
     xp = np.pad(x, 1, mode="reflect")           # numpy reflect == reflect-101
     rows = k[0] * xp[:, :-2] + k[1] * xp[:, 1:-1] + k[2] * xp[:, 2:]
-    return (k[0] * rows[:-2] + k[1] * rows[1:-1] + k[2] * rows[2:]).astype(
-        np.float32)
+    return _fma(rows[:-2] + rows[2:], k[0], rows[1:-1] * k[1])
 
 
 def make_dot_pattern(height: int, width: int, n_dots: int = None,

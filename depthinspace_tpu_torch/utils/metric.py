@@ -3,13 +3,21 @@ exact host metrics ``DistanceMetric``, ``OutlierFractionMetric`` and
 ``MultipleMetric`` (numpy; the worker masks the estimates by gt > 0 and
 flattens them to N x 1), and ``StreamingEvalMetric``, which accumulates the
 same statistics on the device at the wire resolution. Both fill
-``metrics.json``'s ``dist2_*`` and ``of{t}`` keys.
+``metrics.json``'s ``dist2_*`` and ``of{t}`` keys. The host metrics that no
+worker uses are here too: ``RelativeDistanceMetric``,
+``RotmDistanceMetric``, ``QuaternionDistanceMetric`` (over
+``utils/geometry3d.py``'s distances) and ``BinaryAccuracyMetric``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import geometry3d
+
+# numpy 2 renamed trapz to trapezoid
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
 class Metric:
@@ -102,6 +110,139 @@ class OutlierFractionMetric(DistanceMetric):
         d = np.hstack(self.dists)
         return {f"of{t}": float((d > t).sum() / d.size)
                 for t in self.thresholds}
+
+
+class RelativeDistanceMetric(Metric):
+    """L_p distance normalized by the target norm."""
+
+    def __init__(self, vec_length, p=2, **kwargs):
+        self.vec_length = vec_length
+        self.p = p
+        super().__init__(**kwargs)
+
+    def reset(self):
+        self.dists = []
+
+    def add(self, es, ta, ma=None):
+        if es.shape != ta.shape or es.ndim != 2 or \
+                es.shape[1] != self.vec_length:
+            raise ValueError(f"expected Nx{self.vec_length}, got {es.shape}")
+        dist = np.linalg.norm(es - ta, ord=self.p, axis=1)
+        denom = np.linalg.norm(ta, ord=self.p, axis=1)
+        dist = dist / denom
+        if ma is not None:
+            dist = dist[ma != 0]
+        self.dists.append(dist)
+
+    def get(self):
+        d = np.hstack(self.dists)
+        n = f"rel{self.p}"
+        return {f"dist{n}_mean": float(np.mean(d)),
+                f"dist{n}_std": float(np.std(d)),
+                f"dist{n}_median": float(np.median(d))}
+
+
+class RotmDistanceMetric(Metric):
+    """Rotation-matrix distance: ``identity`` (||I - R_es R_ta^T||_F) or
+    ``geodesic`` (the angle)."""
+
+    def __init__(self, type="identity", **kwargs):
+        self.type = type
+        super().__init__(**kwargs)
+
+    def reset(self):
+        self.dists = []
+
+    def add(self, es, ta, ma=None):
+        if es.shape != ta.shape or es.ndim != 3 or es.shape[1:] != (3, 3):
+            raise ValueError(f"expected Nx3x3, got {es.shape}")
+        if self.type == "identity":
+            self.dists.append(geometry3d.rotm_distance_identity(es, ta))
+        elif self.type == "geodesic":
+            self.dists.append(geometry3d.rotm_distance_geodesic(es, ta))
+        else:
+            raise ValueError(self.type)
+
+    def get(self):
+        d = np.hstack(self.dists)
+        return {f"rotm_{self.type}_mean": float(np.mean(d)),
+                f"rotm_{self.type}_median": float(np.median(d))}
+
+
+class QuaternionDistanceMetric(Metric):
+    """Quaternion distance: ``angle``, ``mineucl`` or ``normdiff``."""
+
+    def __init__(self, type="angle", **kwargs):
+        self.type = type
+        super().__init__(**kwargs)
+
+    def reset(self):
+        self.dists = []
+
+    def add(self, es, ta, ma=None):
+        if es.shape != ta.shape or es.ndim != 2 or es.shape[1] != 4:
+            raise ValueError(f"expected Nx4, got {es.shape}")
+        fn = {"angle": geometry3d.quat_distance_angle,
+              "mineucl": geometry3d.quat_distance_mineucl,
+              "normdiff": geometry3d.quat_distance_normdiff}[self.type]
+        self.dists.append(fn(es, ta))
+
+    def get(self):
+        d = np.hstack(self.dists)
+        return {f"quat_{self.type}_mean": float(np.mean(d)),
+                f"quat_{self.type}_median": float(np.median(d))}
+
+
+class BinaryAccuracyMetric(Metric):
+    """Threshold-swept binary classification metrics: ROC-AUC, PR-AUC, AP
+    and accuracies."""
+
+    def __init__(self, thresholds=None, **kwargs):
+        self.thresholds = (np.linspace(0, 1, 101)[:-1] if thresholds is None
+                           else np.asarray(thresholds))
+        super().__init__(**kwargs)
+
+    def reset(self):
+        n = len(self.thresholds)
+        self.tps = np.zeros(n)
+        self.fps = np.zeros(n)
+        self.fns = np.zeros(n)
+        self.tns = np.zeros(n)
+
+    def add(self, es, ta, ma=None):
+        es = np.ravel(es)
+        ta = np.ravel(ta)
+        if es.shape != ta.shape:
+            raise ValueError("shape mismatch")
+        if es.min() < 0 or es.max() > 1:
+            raise ValueError("estimate must be in [0, 1]")
+        es_p = es[ta == 1]
+        es_n = es[ta == 0]
+        for i, t in enumerate(self.thresholds):
+            self.tps[i] += (es_p > t).sum()
+            self.fps[i] += (es_n > t).sum()
+            self.fns[i] += (es_p <= t).sum()
+            self.tns[i] += (es_n <= t).sum()
+
+    def get(self):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            precis = np.nan_to_num(self.tps / (self.tps + self.fps))
+            recall = np.nan_to_num(self.tps / (self.tps + self.fns))
+            fprs = np.nan_to_num(self.fps / (self.fps + self.tns))
+        precis = np.r_[0, precis, 1]
+        recall = np.r_[1, recall, 0]
+        fprs = np.r_[1, fprs, 0]
+        ret = {
+            "auc": float(-_trapezoid(recall, fprs)),
+            "prauc": float(-_trapezoid(precis, recall)),
+            "ap": float(-(np.diff(recall) * precis[:-1]).sum()),
+        }
+        acc = (self.tps + self.tns) / np.maximum(
+            self.tps + self.tns + self.fps + self.fns, 1)
+        for t in np.linspace(0, 1, 11)[1:-1]:
+            i = int(np.argmin(np.abs(t - self.thresholds)))
+            ret[f"acc{self.thresholds[i]:.2f}"] = float(acc[i])
+        return ret
 
 
 class StreamingEvalMetric:

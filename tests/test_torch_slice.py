@@ -122,7 +122,9 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     DIS-MF train step and one TrackDisparityServer request, with the flow
     given and with output/flownet.msgpack's FlowNet computing it; a
     plane-scene fixture generated, read back with host augmentation, one
-    augment_frame with the shear, and one StreamingEvalMetric update."""
+    augment_frame with the shear, one StreamingEvalMetric update, and one
+    textured sample rendered by create_syn_data at 64x56 (its renderer
+    built from native/render.cpp) and written through data/hdf5.py."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -291,6 +293,25 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         met.add(es, gt, 1)
         assert abs(met.get()["dist2_mean"] - 0.5) < 1e-2
         mark("streaming eval metric")
+        from depthinspace_tpu_torch.tools import create_syn_data as gen
+        objs = [gen.procedural_object(np.random.RandomState(i))
+                for i in range(3)]
+        gd = Path(sys.argv[1]) / "generated"
+        K_gen = np.array([[54.4, 0, 28], [0, 54.4, 32], [0, 0, 1]],
+                         np.float32)
+        K_proj = np.array([[98.9, 0, 127.5], [0, 98.9, 127.5], [0, 0, 1]],
+                          np.float32)
+        gen.create_sample("default", gd, 0, 1, (256, 256), (64, 56),
+                          make_settings(256, 256).pattern_gray(), K_proj,
+                          K_gen, K_gen, 0.025, 0.6, objs, textured=True)
+        with hdf5.File(gd / "00000000" / "frames.hdf5") as f:
+            gen_frames = {k: np.asarray(f[k]) for k in f.keys()}
+        assert sorted(gen_frames) == ["R", "ambient", "disp", "grad", "im",
+                                      "t"]
+        assert gen_frames["im"].shape == (4, 1, 64, 56)
+        assert all(np.isfinite(v).all() for v in gen_frames.values())
+        assert (gen_frames["disp"] > 0).mean() > 0.5
+        mark("one rendered sample (create_syn_data)")
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
