@@ -51,7 +51,9 @@ Phases, one or more lines each; any failure raises and exits nonzero:
 8. train parity  one train step at bs=1 on the card and on the CPU from the
            same weights: components and every parameter's gradient;
 9. worker  SingleFrameWorker on in-memory synthetic samples at 512x432: one
-           epoch, a resume that starts at epoch 1, a retest of epoch 0.
+           epoch, a resume that starts at epoch 1, a retest of epoch 0;
+           its debug images (train_000_0000.png, test_000_0000.png) and
+           errs.png decode with imgproc.read_png to the shapes written.
 
 DIS-MF (FuseNet: 4 blocks, 32 channels, tl = 4, 512x432, bf16 compute), with
 the stand-in primary disparity (GT + seeded noise) and rigid flow; the
@@ -139,6 +141,25 @@ path; every kernel but K5 must run on it):
                presave_disp single_frame, train_val multi_frame (bf16, bs
                4, 3 steps) and its retest, each stage's seconds, K1-K3
                (SF) and K1-K4 (MF) launched forward and backward.
+21. data parallel  on one card: (a) one DIS-SF train step (tl = 4, global
+               bs 8, f32, file flow) in 2 gloo ranks on cuda:0 (this script
+               as the children) from phase 7's seeded init, against the
+               world-1 step: the ranks' parameters bitwise equal,
+               components within rtol 1e-4, the gradients within phase 8's
+               limits, beside two world-1 steps' own difference, and every
+               SF kernel launched on each rank; (b) the same for DIS-MF
+               (FuseNet 4 x 32, bf16, 4 tracks, flow rejected everywhere:
+               no tie), the whole gradient within bf16's unit roundoff;
+               ms/step of both beside world 1 (gloo's host staging on one
+               card, not NCCL across cards); (c) train_val retrain (1
+               epoch, 3 steps) and retest under torchrun --standalone
+               --nproc_per_node 1 (NCCL, world 1) on phase 20's samples,
+               writing what one process writes, then the SF worker in 2
+               gloo ranks against world 1 (metrics.json within 1e-3, only
+               rank 0 writes, a resume starts at epoch 1); (d)
+               DisparityServer(devices=[cuda:0, cuda:0]) answering phase
+               4's 13-image request bit for bit as the one-device server.
+               Every child runs under a timeout.
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -1116,6 +1137,17 @@ def main() -> None:
         check({"metrics.json", "state", "net_0000.params", "train.log",
                "state_set_simple_best"} <= set(names),
               f"worker artifacts {names}")
+        # the debug images and errs.png, drawn without matplotlib
+        from depthinspace_tpu_torch.data.imgproc import read_png
+        for name, shape in (("train_000_0000.png", (2 * H, 3 * W, 3)),
+                            ("test_000_0000.png", (2 * H, 3 * W, 3)),
+                            ("errs.png", (600, 800, 3))):
+            check((exp / name).is_file(), f"the worker wrote no {name}")
+            got = read_png(exp / name).shape
+            check(got == shape, f"{name} decodes to {got}, not {shape}")
+        print(f"[worker] debug images: train_000_0000.png and "
+              f"test_000_0000.png {2 * H}x{3 * W} RGB, errs.png 600x800; "
+              "each decodes with imgproc.read_png")
         m0 = json.loads((exp / "metrics.json").read_text())
         loss0 = m0["0"]["test"]["0"]["loss"]
         cfg.epochs = 2
@@ -1145,7 +1177,8 @@ def main() -> None:
                                              mf_np, data, out))
 
     plane_scene_phase(dev, smi)
-    generated_data_phase(dev, smi)
+    generated_data_phase(dev, smi, then=lambda data, out: data_parallel_phase(
+        settings, dev, smi, model, images, data, out))
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1759,10 +1792,12 @@ def ambient_texture(fr: dict) -> float:
     return float(np.median(np.abs(np.diff(amb, axis=2))[both]))
 
 
-def generated_data_phase(dev, smi) -> None:
+def generated_data_phase(dev, smi, then=None) -> None:
     """Phase 20: the port makes its own dataset on the card machine's host
     (tools/create_syn_data.py; the renderer built from native/render.cpp),
-    and the port's CLI trains DIS-SF and DIS-MF on it on the card."""
+    and the port's CLI trains DIS-SF and DIS-MF on it on the card.
+    ``then(data_dir, out_dir)`` runs last, on the 16 default samples (with
+    flow.hdf5) and the CLI's output directory."""
     import os
     import torch
     import depthinspace_tpu_torch.config as config_mod
@@ -1876,9 +1911,11 @@ def generated_data_phase(dev, smi) -> None:
                   f"{np.array2string(np.array(loss), precision=5)}; retest "
                   f"of epoch 0: loss {sum(test['loss']):.5f}, dist2_mean "
                   f"{test['dist2_mean']:.3f} px, of1 {test['of1']:.4f}")
-    print(f"[gen] phase 20 {time.perf_counter() - T0:.1f} s (generation "
-          f"{wall1 + wall4 + wall_t + wall_r:.1f} s, CLI "
-          f"{sum(stage_s.values()):.1f} s); {smi}")
+        print(f"[gen] phase 20 {time.perf_counter() - T0:.1f} s (generation "
+              f"{wall1 + wall4 + wall_t + wall_r:.1f} s, CLI "
+              f"{sum(stage_s.values()):.1f} s); {smi}")
+        if then is not None:
+            then(one, out)
 
 FLOWNET = ROOT / "output" / "flownet.msgpack"
 FLOW_CROP = (256, 224)                    # train_flow's default crop
@@ -2563,5 +2600,331 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     return path
 
 
+# -- 21. data parallel ---------------------------------------------------------
+DP_CHILD = "--data-parallel-child"
+DP_TIMEOUT_S = 300
+DP_TIMED_STEPS = 3
+# a 2-rank step against world 1: components (rtol); the whole gradient
+# (relative L2) and each tensor's, phase 8's limits in f32. In bf16 each
+# rank's partial sums over its samples round to bf16 (unit roundoff 2^-8)
+# before the float32 all-reduce, so the whole gradient gets bf16's unit
+# roundoff (on the CPU, without atomics: 1.93e-3 for the MF case)
+DP_COMP_RTOL, DP_GRAD_TENSOR = 1e-4, 2e-2
+DP_GRAD_ALL = {"float32": 1e-3, "bfloat16": 2.0 ** -8}
+
+
+def start_children(cmds, env=None) -> list:
+    return [subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT) for c in cmds]
+
+
+def run_children(cmds, what: str, env=None, timeout: float = DP_TIMEOUT_S,
+                 procs=None):
+    """Start every command at once (or take ``procs``, started by
+    start_children), wait for all, kill the ones still running at the
+    timeout; raise with a child's output when one failed or hung. Returns
+    the outputs."""
+    procs = procs or start_children(cmds, env)
+    outs, hung = [], False
+    try:
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.perf_counter(), 1))[0])
+            except subprocess.TimeoutExpired:
+                hung = True
+                p.kill()
+                outs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        check(not hung and p.returncode == 0,
+              f"{what}: child {i} {'hung' if hung else 'exited'} "
+              f"{p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def dp_cases(settings):
+    """Phase 21's two steps: (label, train step factory, batch, model
+    factory, launches a step, compute dtype). SF: phase 7's batch (tl = 4, bs 8, file
+    flow) and init, f32. MF: phase 12's tracks (4, bf16, FuseNet 4 x 32)
+    with flow the forward-backward test rejects everywhere, which leaves
+    each target frame's own 3x3 candidates and a neighbour selection no
+    rounding can move (Queue 3, item 7's rule)."""
+    import torch
+    from depthinspace_tpu_torch.data import make_track_batch
+    from depthinspace_tpu_torch.models import (DispNet, FuseNet,
+                                               init_dispnet_, init_fusenet_)
+    from depthinspace_tpu_torch.train import (make_mf_train_step,
+                                              make_sf_train_step)
+    mf = make_track_batch(settings, tl=TL, bs=MF_TRACKS, seed=SEED + 20,
+                          primary_noise=0.5)
+    flow = np.zeros_like(mf.flow)
+    flow[..., 0] = 5.0 * (1 - np.eye(TL, dtype=np.float32))[
+        :, :, None, None, None]
+    return (
+        ("SF", make_sf_train_step,
+         make_track_batch(settings, tl=TL, bs=TRAIN_BS, seed=SEED + 2),
+         lambda: init_dispnet_(DispNet(max_disp=128.0),
+                               torch.Generator().manual_seed(SEED + 3)),
+         PER_TRAIN_STEP, "float32"),
+        ("MF", make_mf_train_step, mf._replace(flow=flow),
+         lambda: init_fusenet_(FuseNet((H, W), settings.K, TL,
+                                       compute_dtype=torch.bfloat16),
+                               torch.Generator().manual_seed(SEED + 5)),
+         PER_MF_STEP, "bfloat16"))
+
+
+def dp_step(settings, case, dev, group, rank: int, world: int) -> dict:
+    """One train step (Adam(1e-4)) of rank ``rank``'s block of the case's
+    batch from the seeded init: components, gradients (summed over the
+    ranks), a digest of the updated parameters, the kernel launches of
+    that step; then the ms of DP_TIMED_STEPS more steps (median)."""
+    import torch
+    from depthinspace_tpu_torch.data import batch_to_torch
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.parallel import shard_batch
+    from depthinspace_tpu_torch.train import TrainState, make_loss_context
+    _, make_step, batch_np, make_model, _, _ = case
+    model = make_model()
+    state = TrainState.create(model, 1e-4, seed=SEED + rank, device=dev)
+    step = make_step(model, make_loss_context(settings, TL, device=dev,
+                                              group=group), state)
+    batch = batch_to_torch(shard_batch(batch_np, rank, world), dev)
+    kernels.reset_launches()
+    comps = step(batch).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in model.named_parameters()}
+    digest = hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes()
+        for p in model.parameters())).hexdigest()
+    times = []
+    for _ in range(DP_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"comps": comps, "grads": grads, "digest": digest,
+            "launches": launches, "ms": float(np.median(times[1:]))}
+
+
+def dp_child(spec: dict) -> None:
+    """A rank of phase 21, on cuda:0 in a gloo group of spec["world"]:
+    "steps" runs dp_step for both cases, "worker" the SF worker's
+    commands (rank 1's first command writes to its own directory, which
+    must stay empty)."""
+    import torch
+    from depthinspace_tpu_torch.data import make_settings
+    from depthinspace_tpu_torch.device import set_full_f32
+    from depthinspace_tpu_torch.parallel import default_group, init_multihost
+    dev = torch.device("cuda", 0)
+    set_full_f32()
+    rank = spec["rank"]
+    init_multihost(device=dev, backend="gloo", init_method=spec["init"],
+                   rank=rank, world_size=spec["world"])
+    if spec["mode"] == "steps":
+        settings = make_settings(H, W)
+        torch.save([dp_step(settings, case, dev, default_group(), rank,
+                            spec["world"]) for case in dp_cases(settings)],
+                   spec["out"])
+    else:
+        from depthinspace_tpu_torch.config import RunConfig
+        from depthinspace_tpu_torch.train.single_frame import (
+            SingleFrameWorker)
+        cfg = RunConfig(**spec["cfg"])
+        for i, (cmd, epochs) in enumerate(spec["cmds"]):
+            cfg.epochs = epochs
+            cfg.output_dir = Path(spec["cfg"]["output_dir"] + (
+                "_rank1" if rank == 1 and i == 0 else ""))
+            SingleFrameWorker(cfg, device=dev).do(cmd)
+            close_logs()
+    torch.distributed.destroy_process_group()
+
+
+def dp_ranks(tmp: Path, spec: dict, world: int = 2) -> list:
+    """``world`` ranks of ``dp_child`` started together; their outputs."""
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), DP_CHILD,
+             json.dumps(dict(spec, rank=r, world=world,
+                             init=f"file://{tmp}/rendezvous_{spec['mode']}",
+                             out=str(tmp / f"rank{r}.pt")))]
+            for r in range(world)]
+    return run_children(cmds, f"phase 21 {spec['mode']}")
+
+
+def timed(fn) -> float:
+    """Seconds of fn()."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def data_parallel_phase(settings, dev, smi, sf_model, images, data: Path,
+                        cli_out: Path) -> None:
+    """Phase 21: data parallelism on one card. NCCL will not put two ranks
+    on one GPU, so (a), (b) and (c)'s second part run 2 gloo ranks on
+    cuda:0 (the collectives staged through the host), and (c) runs the
+    CLI under torchrun at world size 1 on NCCL. The 2-rank times are the
+    cost of gloo's host staging on one card, not a speed figure for NCCL
+    across cards."""
+    import os
+    import torch
+    from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.serve import DisparityServer
+    from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
+    T0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # -- 21a, b. one step in 2 gloo ranks against world 1 ---------------
+        t0 = time.perf_counter()
+        dp_ranks(tmp, {"mode": "steps"})
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        two_s = time.perf_counter() - t0
+        for i, case in enumerate(dp_cases(settings)):
+            label, per_step, grad_all = case[0], case[4], DP_GRAD_ALL[
+                case[5]]
+            t0 = time.perf_counter()
+            ref, again = (dp_step(settings, case, dev, None, 0, 1)
+                          for _ in range(2))
+            r0, r1 = ranks[0][i], ranks[1][i]
+            rel_c = np.abs(r0["comps"] - ref["comps"]) / np.maximum(
+                np.abs(ref["comps"]), 1e-30)
+            g_all, g_t = grad_diff(r0["grads"], ref["grads"])
+            s_all, s_t = grad_diff(again["grads"], ref["grads"])
+            worst = max(g_t, key=g_t.get)
+            print(f"[dp] {label} step, 2 gloo ranks on cuda:0 against world "
+                  f"1: components {np.array2string(r0['comps'], precision=6)}"
+                  f" vs {np.array2string(ref['comps'], precision=6)} "
+                  f"(relative diff max {rel_c.max():.3g}); gradients "
+                  f"relative L2 {g_all:.3g} over all (limit {grad_all:.3g}, "
+                  f"{case[5]}), per tensor max "
+                  f"{g_t[worst]:.3g} ({worst}); world 1 against itself "
+                  f"{s_all:.3g} over all, per tensor max "
+                  f"{max(s_t.values()):.3g}; ranks' parameters bitwise "
+                  f"equal: {r0['digest'] == r1['digest']}; world-1 steps "
+                  f"{time.perf_counter() - t0:.1f} s")
+            print(f"[dp] {label} launches a step: rank 0 "
+                  f"{ {k: v for k, v in r0['launches'].items() if v} }, rank "
+                  f"1 { {k: v for k, v in r1['launches'].items() if v} }")
+            print(f"[dp] {label} ms/step: 2 gloo ranks on one card "
+                  f"{r0['ms']:.1f} (rank 0), {r1['ms']:.1f} (rank 1); world "
+                  f"1 {ref['ms']:.1f}; medians of {DP_TIMED_STEPS}; the "
+                  f"cost of gloo's host staging on one card, not a speed "
+                  f"figure for NCCL across cards; {smi}")
+            check(r0["digest"] == r1["digest"],
+                  f"{label}: the ranks' parameters differ after the step")
+            check(np.array_equal(r0["comps"], r1["comps"]),
+                  f"{label}: the ranks report other components")
+            check(rel_c.max() <= DP_COMP_RTOL,
+                  f"{label}: 2-rank components differ from world 1: {rel_c}")
+            check(g_all <= grad_all and g_t[worst] <= DP_GRAD_TENSOR,
+                  f"{label}: 2-rank gradients differ from world 1: all "
+                  f"{g_all}, {worst} {g_t[worst]}")
+            for r in (r0, r1):
+                for k, n in per_step.items():
+                    check(r["launches"][k] == n,
+                          f"{label}: {k} launched {r['launches'][k]} times "
+                          f"on a rank, expected {n}")
+            del ref, again
+        del ranks
+        torch.cuda.empty_cache()
+
+        # -- 21c. the CLI under torchrun (NCCL, world 1), and beside its
+        # retrain (mostly the start of two processes) the SF worker in 2
+        # gloo ranks against world 1 -------------------------------------
+        steps = ["--epochs", "1", "--train_batch_size", "4",
+                 "--max_train_iter", "3"]
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps({"OUTPUT_DIR": str(tmp / "torchrun"),
+                                        "DATA_DIR": str(data)}))
+        env = dict(os.environ, DIS_CONFIG=str(cfg_path))
+        torchrun = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", "1", "-m",
+                    "depthinspace_tpu_torch.train_val",
+                    "--architecture", "single_frame"]
+        t0 = time.perf_counter()
+        retrain = start_children([torchrun + ["--cmd", "retrain", *steps]],
+                                 env)
+        cfg = dict(data_dir=str(data), output_dir=str(tmp / "world1"),
+                   epochs=1, train_batch_size=4, test_batch_size=4,
+                   max_train_iter=3, num_workers=4, device_augment=False,
+                   seed=SEED)
+        one_s = timed(lambda: SingleFrameWorker(
+            RunConfig(**cfg), device=dev).do("retrain"))
+        close_logs()
+        two_w_s = timed(lambda: dp_ranks(tmp, {
+            "mode": "worker", "cfg": dict(cfg,
+                                          output_dir=str(tmp / "world2")),
+            "cmds": [("retrain", 1), ("resume", 2)]}))
+        run_children(None, "torchrun retrain", procs=retrain)
+        cli_s = {"retrain": time.perf_counter() - t0}
+        cli_s["retest"] = timed(lambda: run_children(
+            [torchrun + ["--cmd", "retest", "--epoch", "0"]],
+            "torchrun retest", env=env))
+        exp = tmp / "torchrun" / "single_frame"
+        got = sorted(p.name for p in exp.iterdir())
+        want = sorted(p.name for p in (cli_out / "single_frame").iterdir())
+        log = (exp / "train.log").read_text()
+        m = json.loads((exp / "metrics.json").read_text())["0"]
+        print(f"[dp] torchrun --standalone --nproc_per_node 1 (NCCL, world "
+              f"1): train_val retrain {cli_s['retrain']:.1f} s (beside the "
+              f"workers below), retest {cli_s['retest']:.1f} s; {got}; "
+              f"epoch 0 test loss {sum(m['test']['0']['loss']):.5f}")
+        check(got == want, f"torchrun wrote {got}, one process {want}")
+        check("device: cuda:0" in log and np.isfinite(
+            m["train"]["loss"]).all(), "the torchrun run's log or metrics")
+
+        m1 = json.loads((tmp / "world1" / "single_frame" / "metrics.json")
+                        .read_text())["0"]
+        exp2 = tmp / "world2" / "single_frame"
+        m2 = json.loads((exp2 / "metrics.json").read_text())
+        rank1_files = [p for p in (tmp / "world2_rank1").rglob("*")
+                       if p.is_file()]
+        rel = {f"train {i}": abs(a - b) / abs(b) for i, (a, b) in enumerate(
+            zip(m2["0"]["train"]["loss"], m1["train"]["loss"]))}
+        for k, v in m1["test"]["0"].items():
+            for i, (a, b) in enumerate(zip(np.atleast_1d(m2["0"]["test"]["0"]
+                                                         [k]),
+                                           np.atleast_1d(v))):
+                rel[f"test {k} {i}"] = abs(a - b) / max(abs(b), 1e-30)
+        worst = max(rel, key=rel.get)
+        print(f"[dp] SF worker, 2 gloo ranks on cuda:0 (global batch 4, host "
+              f"augmentation, 3 steps, retrain then resume) {two_w_s:.1f} s, "
+              f"world 1 {one_s:.1f} s: metrics.json of epoch 0 within "
+              f"{rel[worst]:.3g} relative ({worst}); rank 1 wrote "
+              f"{len(rank1_files)} files; epochs {sorted(m2)}")
+        check(rel[worst] <= 1e-3, f"2-rank metrics differ: {worst} "
+              f"{rel[worst]}")
+        check(not rank1_files, f"rank 1 wrote {rank1_files}")
+        check(sorted(m2) == ["0", "1"] and "Resumed from epoch 0" in (
+            exp2 / "train.log").read_text(), "the 2-rank resume")
+
+        # -- 21d. the server's replicas -----------------------------------
+        t0 = time.perf_counter()
+        one = DisparityServer(sf_model, imsize=(H, W), max_batch=8,
+                              device=dev).infer(images)
+        two = DisparityServer(sf_model, imsize=(H, W), max_batch=8,
+                              devices=[dev, dev]).infer(images)
+        print(f"[dp] DisparityServer(devices=[cuda:0, cuda:0]) on phase 4's "
+              f"13-image request (buckets 8 and 8, one a replica): equal "
+              f"to devices=None bit for bit: {np.array_equal(one, two)} "
+              f"(max |diff| {np.abs(one - two).max():.3g} px); "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(np.array_equal(one, two), "the 2-replica server differs")
+    print(f"[dp] phase 21 {time.perf_counter() - T0:.1f} s (the 2-rank "
+          f"steps' children {two_s:.1f} s); {smi}")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [DP_CHILD]:
+        dp_child(json.loads(sys.argv[2]))
+    else:
+        main()

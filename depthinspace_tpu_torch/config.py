@@ -1,8 +1,8 @@
 """Run configuration, port of ``depthinspace_tpu/config.py``: machine paths
 from ``config.json`` (OUTPUT_DIR, DATA_DIR, ...) and the hyperparameters of
 the CLI (``utils/args.py``) in one dataclass. It has the JAX package's
-fields that this package uses; the CLI flags for machinery it does not have
-(the device mesh, the warp kernels' shift bound) are parsed and dropped.
+fields that this package uses; the CLI flag for machinery it does not have
+(the warp kernels' shift bound) is parsed and dropped.
 """
 
 from __future__ import annotations
@@ -59,6 +59,10 @@ class RunConfig:
     max_train_iter: int = -1
     test_samples: int = -1                  # cap eval-split size (-1 = all)
     deadline_ts: float = 0.0                # stop after this epoch time
+    write_debug_images: bool = True         # train_*/test_*.png
+    # data parallel over every process of the launch (torchrun; one card a
+    # process); train_batch_size is the global batch
+    use_mesh: bool = True
 
     @classmethod
     def from_args(cls, args, config_path: str | None = None) -> "RunConfig":

@@ -31,6 +31,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..parallel.mesh import pad_indices, shard_indices
 from . import hdf5
 from .augment import augment_frame
 from .batch import Batch
@@ -237,11 +238,20 @@ class DataLoader:
     ``get_batch`` assembles a batch at once, as the wire cache's does), and
     ``transform`` (for example the copy to the device) runs on its own
     thread. Shuffles with the global numpy RNG, like the JAX package's
-    loader."""
+    loader.
+
+    Data parallel (``world > 1``): ``batch_size`` is the global batch and
+    every rank draws the same order (the ranks seed the global RNG alike);
+    rank ``rank`` loads only its part of each global batch
+    (``parallel/mesh.py::shard_indices``, its block of each of ``accum``
+    contiguous chunks). A ragged last batch (no ``drop_last``) is first
+    padded to a multiple of the world by repeating its last sample
+    (``mesh.pad_batch``'s rule); its first ``n_valid(i)`` samples count."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False,
-                 prefetch: int = 4, transform=None):
+                 prefetch: int = 4, transform=None, rank: int = 0,
+                 world: int = 1, accum: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -249,6 +259,19 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.transform = transform
+        self.rank, self.world, self.accum = rank, world, accum
+
+    def n_valid(self, i: int) -> int:
+        """The number of real samples in global batch ``i``."""
+        return min(self.batch_size, len(self.dataset) - i * self.batch_size)
+
+    def _local(self, idxs: np.ndarray) -> np.ndarray:
+        """This rank's part of the global batch ``idxs``."""
+        if self.world == 1:
+            return idxs
+        idxs = idxs[pad_indices(len(idxs), self.world)]
+        return idxs[shard_indices(len(idxs), self.rank, self.world,
+                                  self.accum)]
 
     def __len__(self):
         n = len(self.dataset)
@@ -260,7 +283,8 @@ class DataLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.shuffle(order)
-        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
+        batches = [self._local(order[i * self.batch_size:
+                                     (i + 1) * self.batch_size])
                    for i in range(len(self))]
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
         stop = threading.Event()

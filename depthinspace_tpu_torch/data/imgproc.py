@@ -3,8 +3,9 @@ resampling of ``cv2.remap`` and ``cv2.warpAffine`` (INTER_LINEAR,
 BORDER_CONSTANT 0) and of ``cv2.resize`` (INTER_LINEAR),
 ``cv2.GaussianBlur`` (BORDER_REFLECT_101), ``cv2.blur`` (BORDER_REFLECT)
 and ``cv2.Sobel`` with ksize 5 (CV_32F, BORDER_REFLECT_101), on 2-D images
-(``remap`` and ``resize_linear`` also on channels); and ``read_png``,
-``cv2.imread`` of a PNG file in numpy and ``zlib``.
+(``remap`` and ``resize_linear`` also on channels); ``read_png``,
+``cv2.imread`` of a PNG file in numpy and ``zlib``, and ``write_png``, an
+8-bit gray or RGB PNG writer (the workers' debug images).
 
 Each follows OpenCV 5's code where it decides the last bit:
 
@@ -322,3 +323,28 @@ def read_png(path) -> np.ndarray:
     else:
         rgb = samples[..., :3]
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Write ``image``, (H, W) gray or (H, W, 3) RGB uint8, as an 8-bit PNG:
+    every row with filter type 0 (None), the rows zlib-compressed."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or not (
+            image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, not "
+                         f"{image.shape} {image.dtype}")
+    height, width = image.shape[:2]
+    ctype = 0 if image.ndim == 2 else 2
+    rows = image.reshape(height, -1)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    data = (_PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+                                              ctype, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+    Path(path).write_bytes(data)

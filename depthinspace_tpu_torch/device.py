@@ -1,7 +1,10 @@
 """Device selection: the port runs on the card unless asked for the CPU, and
-on the card in full float32."""
+on the card in full float32. Under torchrun (one process per card) a
+process's card is ``cuda:LOCAL_RANK``."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -16,11 +19,18 @@ def set_full_f32() -> None:
 
 
 def require_cuda() -> torch.device:
-    """The first CUDA device; raises when PyTorch sees no CUDA card, so a
-    run without a card fails instead of quietly running on the CPU."""
+    """This process's card: ``cuda:LOCAL_RANK`` under torchrun, else
+    ``cuda:0``. Raises when PyTorch sees no CUDA card, or not the one
+    LOCAL_RANK names, so a run fails instead of quietly running on the CPU
+    or sharing another process's card."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
-    return torch.device("cuda", 0)
+    index = int(os.environ.get("LOCAL_RANK", "0"))
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"LOCAL_RANK {index} names cuda:{index}, but "
+                           f"PyTorch sees {torch.cuda.device_count()} CUDA "
+                           "device(s)")
+    return torch.device("cuda", index)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -15,6 +15,9 @@ projected into view a and flow-warped back, must land within 1 px of where
 it started. ``with_stats=True`` also returns the share of pixels each mask
 accepts, over all directions: whether a flow provider's error starves the
 loss (fb accepts ~0.7 px at zero motion).
+
+With a data-parallel ``group`` the masked means and the statistics are
+over the global batch (``losses/reduce.py``): each rank's loss is its share.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 
 from ..ops.geometry import pixel_rays, reproject
 from ..ops.resample import flow_warp
+from ..parallel.multihost import all_reduce_sum
+from .reduce import global_mean, global_ratio
 
 
 class CameraGeometry(NamedTuple):
@@ -95,13 +100,21 @@ def _directions(depth, R, t, flow, amb):
         a0=gather_dir(amb, a_idx), a1=gather_dir(amb, b_idx))
 
 
-def _mask_stats(**masks) -> dict:
-    """The mean of each boolean or 0/1 mask, a float32 scalar tensor."""
-    return {k: m.to(torch.float32).mean() for k, m in masks.items()}
+def _mask_stats(group=None, **masks) -> dict:
+    """The mean of each boolean or 0/1 mask over the global batch, a
+    float32 scalar tensor."""
+    out = {k: global_mean(m.to(torch.float32), group)
+           for k, m in masks.items()}
+    if group is None:
+        return out
+    names = list(out)
+    tot = all_reduce_sum(torch.stack([out[k] for k in names]), group)
+    return dict(zip(names, tot))
 
 
 def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
-                      clamp: float = 0.1, with_stats: bool = False):
+                      clamp: float = 0.1, with_stats: bool = False,
+                      group=None):
     """Sum of the SF direction losses.
 
     depth/amb: (tl, N, H, W); R: (tl, N, 3, 3); t: (tl, N, 3);
@@ -138,14 +151,14 @@ def geometric_loss_sf(cam: CameraGeometry, depth, R, t, flow, amb,
     # per-direction masked means (the reference normalizes per direction)
     diff = (diff * mask).reshape(nd, -1).sum(dim=1)
     msum = mask.reshape(nd, -1).sum(dim=1)
-    loss = torch.sum(diff / (msum + 1e-8))
+    loss = torch.sum(global_ratio(diff, msum, group, eps=1e-8))
     if with_stats:
-        return loss, _mask_stats(fb=fb, vc=vc, accept=mask)
+        return loss, _mask_stats(group, fb=fb, vc=vc, accept=mask)
     return loss
 
 
 def geometric_loss_mf(cam: CameraGeometry, depth, R, t, flow, amb,
-                      primary_depth, with_stats: bool = False):
+                      primary_depth, with_stats: bool = False, group=None):
     """Sum of the MF direction losses: the SF directions without the clamp,
     with the primary-depth round-trip mask rf.
 
@@ -184,9 +197,9 @@ def geometric_loss_mf(cam: CameraGeometry, depth, R, t, flow, amb,
 
     diff = (diff * mask).reshape(nd, -1).sum(dim=1)
     msum = mask.reshape(nd, -1).sum(dim=1)
-    loss = torch.sum(diff / (msum + 1e-8))
+    loss = torch.sum(global_ratio(diff, msum, group, eps=1e-8))
     if with_stats:
-        return loss, _mask_stats(fb=fb, vc=vc, rf=rf, accept=mask)
+        return loss, _mask_stats(group, fb=fb, vc=vc, rf=rf, accept=mask)
     return loss
 
 
@@ -202,21 +215,22 @@ def _pair_track(depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1):
 
 
 def flow_consistency_sf(cam: CameraGeometry, depth0, depth1, R0, t0, R1, t1,
-                        flow0, flow1, amb0, amb1, clamp: float = 0.1):
+                        flow0, flow1, amb0, amb1, clamp: float = 0.1,
+                        group=None):
     """The symmetrized SF loss of one view pair: the masked mean of
     direction 0 -> 1 plus that of 1 -> 0. depth/amb: (N, H, W); flow0 (0 ->
     1) and flow1 (1 -> 0): (N, H, W, 2); R: (N, 3, 3); t: (N, 3)."""
     return geometric_loss_sf(cam, *_pair_track(
         depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1),
-        clamp=clamp)
+        clamp=clamp, group=group)
 
 
 def flow_consistency_mf(cam: CameraGeometry, depth0, depth1, R0, t0, R1, t1,
                         flow0, flow1, amb0, amb1, primary_depth0,
-                        primary_depth1):
+                        primary_depth1, group=None):
     """The symmetrized MF loss of one view pair, with the rf mask of each
     direction's target view's primary depth; shapes as
     :func:`flow_consistency_sf`."""
     return geometric_loss_mf(cam, *_pair_track(
         depth0, depth1, R0, t0, R1, t1, flow0, flow1, amb0, amb1),
-        torch.stack([primary_depth0, primary_depth1]))
+        torch.stack([primary_depth0, primary_depth1]), group=group)

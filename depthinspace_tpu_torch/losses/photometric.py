@@ -12,17 +12,20 @@ import torch
 
 from ..ops.census import census_sad
 from ..ops.resample import warp_pattern
+from .reduce import global_mean, global_ratio
 
 
 def photometric_loss(disp: torch.Tensor, im: torch.Tensor,
                      pattern: torch.Tensor, std: torch.Tensor | None = None,
-                     block_size: int = 9, eps: float = 0.5):
+                     block_size: int = 9, eps: float = 0.5, group=None):
     """disp, im, std: (N, H, W); pattern (H, W) LCN'd projector pattern.
 
     Returns (loss, pattern_proj): the std-weighted mean of the census map
-    (plain mean without ``std``)."""
+    (plain mean without ``std``), over the global batch of ``group``
+    (``losses/reduce.py``: this rank's share)."""
     pattern_proj = warp_pattern(pattern, disp)
     diff = census_sad(pattern_proj, im, block_size, eps)
     if std is not None:
-        return torch.sum(std * diff) / torch.sum(std), pattern_proj
-    return torch.mean(diff), pattern_proj
+        return (global_ratio(torch.sum(std * diff), torch.sum(std), group),
+                pattern_proj)
+    return global_mean(diff, group), pattern_proj

@@ -16,9 +16,20 @@ sum in another order from call to call, and FuseNet turns the primary
 disparity's ulps into other neighbour choices, so the same request could
 come back different by many pixels. One request gives one answer, as in
 the JAX servers.
+
+``DisparityServer(devices=[...])`` keeps one replica of DispNet on each
+device (the JAX server's ``mesh=``) and gives the replicas the request's
+buckets in turn, every replica's forward queued before any result is
+read. Departure: the JAX mesh splits each bucket over its devices, but
+cuDNN picks its convolution algorithm by the batch size, so a bucket split
+in blocks comes back other in the last bits than on one device (4.3e-6 px
+at 512x432 on an H100); whole buckets keep one request one answer,
+whatever the number of replicas.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -83,15 +94,25 @@ class DisparityServer:
     >>> disp = srv.infer(images)     # (n, H, W) float32 in [0, 1] -> (n, H, W)
 
     ``device=None`` is the card (raises without one); the CPU only when
-    asked for with ``device="cpu"``."""
+    asked for with ``device="cpu"``. ``devices``, a list of devices in
+    place of ``device``, runs the request's buckets in turn on a replica of
+    the model on each."""
 
     def __init__(self, model: DispNet, imsize=(512, 432), max_batch: int = 32,
-                 lcn_radius: int = 5, device=None):
-        self.device = resolve_device(device)
+                 lcn_radius: int = 5, device=None, devices=None):
+        if devices is None:
+            self.devices = [resolve_device(device)]
+            self.models = [model.to(self.devices[0]).eval()]
+        elif device is not None or not devices:
+            raise ValueError("give device or a non-empty list of devices")
+        else:
+            self.devices = [resolve_device(d) for d in devices]
+            self.models = [copy.deepcopy(model).to(d).eval()
+                           for d in self.devices]
+        self.device, self.model = self.devices[0], self.models[0]
         self.imsize = tuple(imsize)
         self.max_batch = int(max_batch)
         self.lcn_radius = lcn_radius
-        self.model = model.to(self.device).eval()
 
     @classmethod
     def from_jax_params(cls, tree, max_disp: float = 128.0, **kw):
@@ -119,25 +140,29 @@ class DisparityServer:
                 buckets.append(b)
                 b *= 2
         for b in buckets:
-            self._run(np.zeros((b, H, W), np.float32)).cpu()
+            for i in range(len(self.models)):
+                self._run(np.zeros((b, H, W), np.float32), i).cpu()
 
     @torch.inference_mode()
-    def _run(self, images: np.ndarray) -> torch.Tensor:
+    def _run(self, images: np.ndarray, replica: int = 0) -> torch.Tensor:
         im = decode_field("im", torch.from_numpy(encode_unit(images)).to(
-            self.device))
+            self.devices[replica]))
         with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-            return sf_forward(self.model, lcn_input(im, self.lcn_radius))
+            return sf_forward(self.models[replica],
+                              lcn_input(im, self.lcn_radius))
 
     def infer(self, images: np.ndarray) -> np.ndarray:
         """images (n, H, W) float32 in [0, 1] -> disparities (n, H, W)."""
         images = np.asarray(images, np.float32)
-        n = images.shape[0]
+        chunks = [images[lo:lo + self.max_batch]
+                  for lo in range(0, images.shape[0], self.max_batch)]
+        n_rep = len(self.models)
         outs = []
-        for lo in range(0, n, self.max_batch):
-            chunk = images[lo:lo + self.max_batch]
-            m = chunk.shape[0]
-            chunk = _pad_to(chunk, _bucket(m, self.max_batch))
-            outs.append(self._run(chunk)[:m].cpu().numpy())
+        for first in range(0, len(chunks), n_rep):
+            group = chunks[first:first + n_rep]
+            parts = [self._run(_pad_to(c, _bucket(len(c), self.max_batch)),
+                               i) for i, c in enumerate(group)]
+            outs += [p[:len(c)].cpu().numpy() for p, c in zip(parts, group)]
         return np.concatenate(outs, axis=0)
 
 

@@ -10,6 +10,10 @@ same three artifacts in the experiment directory:
 3. ``net_%04d.params``: the DispNet or FuseNet weights in flax msgpack
    (``utils/flax_msgpack.py``), the file the JAX package's retest and
    presave tools read; this package reads the ones the JAX package writes.
+
+Data parallel: every rank calls ``save`` (it gathers each rank's step
+generator), rank 0 alone writes, and a barrier follows; then every rank
+can ``restore`` from the same files, each taking its own generator back.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..models import (FuseNet, dispnet_state_dict_from_flax,
                       flax_tree_from_dispnet_state_dict,
                       flax_tree_from_fusenet_state_dict,
                       fusenet_state_dict_from_flax)
+from ..parallel.multihost import all_gather_object, barrier
 from ..utils import flax_msgpack
 from .state import TrainState
 
@@ -60,14 +65,17 @@ def load_net_params(path: Path,
 
 
 class StateCheckpointer:
-    """Rolling full-state checkpoint at <exp_dir>/<name> (default 'state')."""
+    """Rolling full-state checkpoint at <exp_dir>/<name> (default 'state');
+    ``group``: the data-parallel process group, None on one process."""
 
     FILE = "state.pt"
 
     def __init__(self, exp_dir: Path, name: str = "state",
-                 max_to_keep: int = 2):
+                 max_to_keep: int = 2, group=None):
         self.dir = Path(exp_dir) / name
         self.max_to_keep = max_to_keep
+        self.group = group
+        self.rank = 0 if group is None else torch.distributed.get_rank(group)
 
     def _epochs(self) -> list[int]:
         if not self.dir.is_dir():
@@ -80,6 +88,13 @@ class StateCheckpointer:
         return epochs[-1] if epochs else None
 
     def save(self, epoch: int, state: TrainState, min_err: dict) -> None:
+        generators = all_gather_object(state.generator.get_state(),
+                                       self.group)
+        if self.rank == 0:
+            self._write(epoch, state, min_err, generators)
+        barrier(self.group)
+
+    def _write(self, epoch, state, min_err, generators) -> None:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
@@ -90,6 +105,8 @@ class StateCheckpointer:
             "epoch": int(epoch),
             "min_err": {k: float(v) for k, v in min_err.items()},
         }
+        if self.group is not None:
+            payload["rank_generators"] = generators
         out = self.dir / str(epoch)
         out.mkdir(parents=True, exist_ok=True)
         tmp = out / (self.FILE + ".tmp")
@@ -101,7 +118,9 @@ class StateCheckpointer:
     def restore(self, state: TrainState):
         """Loads the newest saved epoch into ``state`` (model, optimizer,
         step, generator) and the host RNGs. Returns (state, epoch, min_err),
-        or None when nothing is saved."""
+        or None when nothing is saved. A rank takes its own generator back
+        when the file was written by a run of as many ranks; else rank 0
+        takes the saved one and the other ranks keep their seeded ones."""
         epoch = self.latest_epoch()
         if epoch is None:
             return None
@@ -111,7 +130,13 @@ class StateCheckpointer:
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        state.generator.set_state(payload["generator"])
+        gens = payload.get("rank_generators")
+        world = (1 if self.group is None
+                 else torch.distributed.get_world_size(self.group))
+        if gens is not None and len(gens) == world:
+            state.generator.set_state(gens[self.rank])
+        elif self.rank == 0:
+            state.generator.set_state(payload["generator"])
         np.random.set_state(payload["host_rng"]["numpy"])
         random.setstate(payload["host_rng"]["python"])
         return state, int(payload["epoch"]), dict(payload["min_err"])

@@ -32,5 +32,5 @@ class MultiFrameWorker(Worker):
         return make_mf_train_step(state.model, self.ctx, state,
                                   accum_steps=self.accum_steps)
 
-    def make_eval_step(self, model):
-        return make_mf_eval_step(model, self.ctx)
+    def make_eval_step(self, model, ctx=None):
+        return make_mf_eval_step(model, self.ctx if ctx is None else ctx)

@@ -20,6 +20,12 @@ images). The JAX package draws its
 random numbers from jax keys; here they come from an explicit
 ``torch.Generator``, or are passed in (the tests hand both packages the
 same numbers).
+
+Data parallel: with ``LossContext.group`` set, every batch-wide mean and
+masked ratio is over the group's global batch (``losses/reduce.py``): a
+rank's total is its share, whose gradients summed over the ranks are the
+global-batch gradient, and the components are the all-reduced (global)
+values, the JAX mesh step's.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ import torch.nn.functional as F
 
 from ..losses import (CameraGeometry, geometric_loss_mf, geometric_loss_sf,
                       photometric_loss, smoothness_loss)
+from ..losses.reduce import global_mean, global_ratio
 from ..models import flow_all_pairs
 from ..ops import disp_to_depth, lcn, resize_bilinear
+from ..parallel.multihost import all_reduce_sum
 
 FLOW_SOURCES = ("file", "rigid", "pred", "net")
 
@@ -75,6 +83,9 @@ class LossContext(NamedTuple):
     # per-scale LCN'd patterns for s = 1..3
     photometric_pyramid: bool = False
     pattern_pyr: Optional[tuple] = None
+    # the data-parallel process group (parallel/multihost.py); None on one
+    # process
+    group: Optional[object] = None
 
 
 def make_loss_context(settings, track_length: int = 4, device=None,
@@ -263,7 +274,17 @@ def _sgm_warmup_term(out, sgm_disp, noise, ctx: LossContext):
     (``noise`` standard normal, shaped like out)."""
     valid = (sgm_disp > ctx.sgm_valid_threshold).to(out.dtype)
     err = torch.abs(out - sgm_disp + ctx.sgm_noise_sigma * noise) * valid
-    return torch.sum(err) / torch.clamp(torch.sum(valid), min=1.0)
+    return global_ratio(torch.sum(err), torch.sum(valid), ctx.group,
+                        min_den=1.0)
+
+
+def _total_and_components(comps: list, ctx: LossContext):
+    """(this rank's total, the components over the global batch)."""
+    comps = torch.stack(comps)
+    total = torch.sum(comps)
+    if ctx.group is not None:
+        comps = all_reduce_sum(comps.detach(), ctx.group)
+    return total, comps
 
 
 def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
@@ -283,7 +304,7 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
     for s, o in enumerate(outs):
         if s == 0 or not ctx.photometric_pyramid:
             val, _ = photometric_loss(o[..., 0], im_lcn, ctx.pattern_lcn,
-                                      std=im_std)
+                                      std=im_std, group=ctx.group)
         else:
             # scale s at 1/2^s resolution; the scale-s head's values are
             # already disparities in scale-s pixels
@@ -293,9 +314,11 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
             im_lcn_s, std_s = lcn(im_s, ctx.lcn_radius, 0.05)
             disp_s = resize_bilinear(o, h_s, w_s, align_corners=False)[..., 0]
             val, _ = photometric_loss(disp_s, im_lcn_s,
-                                      ctx.pattern_pyr[s - 1], std=std_s)
+                                      ctx.pattern_pyr[s - 1], std=std_s,
+                                      group=ctx.group)
         comps.append(val / (2 ** s))
-    comps.append(ctx.smooth_weight_sf * smoothness_loss(outs[0][..., 0], amb))
+    comps.append(ctx.smooth_weight_sf * smoothness_loss(outs[0][..., 0], amb,
+                                                        ctx.group))
 
     ge_num = ctx.track_length * (ctx.track_length - 1) / 2
     disp0 = outs[0][..., 0].reshape(tl, bs, H, W)
@@ -306,13 +329,14 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
     else:
         flow = batch.flow
     ge = geometric_loss_sf(ctx.cam, depth, batch.R, batch.t, flow,
-                           batch.ambient, clamp=ctx.geo_clamp)
+                           batch.ambient, clamp=ctx.geo_clamp,
+                           group=ctx.group)
     comps.append(ctx.geo_weight / ge_num * ge)
 
     if ctx.use_pseudo_gt:
         pseudo = batch.pseudo_gt.reshape(tl * bs, H, W)
         for s, o in enumerate(outs):
-            val = torch.mean(torch.abs(o[..., 0] - pseudo))
+            val = global_mean(torch.abs(o[..., 0] - pseudo), ctx.group)
             comps.append(ctx.pseudo_weight * val / (2 ** s))
 
     if train and ctx.data_type == "real":
@@ -324,8 +348,7 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
             val = _sgm_warmup_term(o[..., 0], sgm, noise, ctx)
             comps.append(ctx.sgm_weight * gate * val)
 
-    comps = torch.stack(comps)
-    return torch.sum(comps), comps
+    return _total_and_components(comps, ctx)
 
 
 def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
@@ -341,21 +364,23 @@ def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
     o = out[..., 0].reshape(tl * bs, H, W)
 
     comps = []
-    val, _ = photometric_loss(o, im_lcn, ctx.pattern_lcn, std=im_std)
+    val, _ = photometric_loss(o, im_lcn, ctx.pattern_lcn, std=im_std,
+                              group=ctx.group)
     comps.append(val)
-    comps.append(ctx.smooth_weight_mf * smoothness_loss(o, amb))
+    comps.append(ctx.smooth_weight_mf * smoothness_loss(o, amb, ctx.group))
 
     ge_num = ctx.track_length * (ctx.track_length - 1) / 2
     depth = disp_to_depth(out[..., 0], ctx.focal_length, ctx.baseline)
     primary_depth = disp_to_depth(batch.primary_disp, ctx.focal_length,
                                   ctx.baseline)
     ge = geometric_loss_mf(ctx.cam, depth, batch.R, batch.t, batch.flow,
-                           batch.ambient, primary_depth)
+                           batch.ambient, primary_depth, group=ctx.group)
     comps.append(ctx.geo_weight / ge_num * ge)
 
     if train:
         gate = 1.0 if epoch < ctx.mf_primary_warmup_epochs else 0.0
-        val = torch.mean(torch.abs(out[..., 0] - batch.primary_disp))
+        val = global_mean(torch.abs(out[..., 0] - batch.primary_disp),
+                          ctx.group)
         comps.append(ctx.mf_primary_warmup_weight * gate * val)
         if ctx.data_type == "real":
             sgm = batch.sgm_disp.reshape(tl * bs, H, W)
@@ -365,5 +390,4 @@ def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
             val = _sgm_warmup_term(o, sgm, noise, ctx)
             comps.append(ctx.sgm_weight * gate_sgm * val)
 
-    comps = torch.stack(comps)
-    return torch.sum(comps), comps
+    return _total_and_components(comps, ctx)

@@ -25,5 +25,5 @@ class SingleFrameWorker(Worker):
         return make_sf_train_step(state.model, self.ctx, state,
                                   accum_steps=self.accum_steps)
 
-    def make_eval_step(self, model):
-        return make_sf_eval_step(model, self.ctx)
+    def make_eval_step(self, model, ctx=None):
+        return make_sf_eval_step(model, self.ctx if ctx is None else ctx)

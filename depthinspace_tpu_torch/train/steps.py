@@ -11,6 +11,12 @@ apply the flow source (``rigid`` computes the flow from the GT disparity;
 for DIS-MF ``pred`` computes it from the primary disparity); for DIS-SF
 with ``flow_source="pred"`` the flow comes from the live prediction inside
 ``sf_losses``.
+
+Data parallel (``ctx.group`` set): each rank runs its block of the global
+batch (``parallel/mesh.py::shard_batch``), its losses are its shares of the
+global-batch losses (``losses/reduce.py``), and after the accumulation loop
+one all-reduce of the flattened gradients sums the shares, as the JAX
+mesh step's one psum does; then every rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from ..data.batch import Batch
 from ..data.wire import decode_batch, to_u16_disp
 from ..ops import disp_to_depth
+from ..parallel.multihost import all_reduce_sum
 from .objective import (LossContext, augment_batch_device, draw_augment,
                         mf_losses, prepare_batch, preprocess_images, sf_losses)
 from .state import TrainState
@@ -50,7 +57,12 @@ _ARCH = {
 def chunk_batch(batch: Batch, k: int) -> list[Batch]:
     """Split the batch-size axis into k consecutive microbatches, as
     ``_chunk_batch`` does with one data-parallel shard. Every field is
-    (tl, bs, ...) except flow, (tl, tl, bs, ...)."""
+    (tl, bs, ...) except flow, (tl, tl, bs, ...).
+
+    Under data parallelism the JAX step chunks the *global* batch into k
+    contiguous ranges; a rank's local batch holds its block of each range
+    in range order (``parallel/mesh.py::shard_batch`` with ``accum=k``),
+    so microbatch j here is the rank's share of global microbatch j."""
     def split(name, x, i):
         if x is None:
             return None
@@ -95,11 +107,22 @@ def _make_train_step(architecture: str, model: torch.nn.Module,
                 if p.grad is not None:
                     p.grad.mul_(inv)
             comps_sum = comps_sum * inv
+        if ctx.group is not None:
+            _all_reduce_grads(params, ctx.group)
         state.optimizer.step()
         state.step += 1
         return comps_sum
 
     return train_step
+
+
+def _all_reduce_grads(params, group) -> None:
+    """Sum every parameter's gradient over the ranks, in one collective on
+    a flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def _make_eval_step(architecture: str, model: torch.nn.Module,

@@ -24,8 +24,28 @@ than 64 samples) ``utils/metric.py::StreamingEvalMetric``, a histogram on
 the device. ``--device_augment False`` augments the training samples on
 the host (``data/augment.py``), as the JAX worker does.
 
-Departures: no device mesh (one card); no debug images or errs.png (not
-ported yet); no geo_oor_frac (the JAX warp kernels drop flow beyond
+Data parallelism (``use_mesh``, on by default as in JAX): under torchrun
+every process drives one card (``parallel/multihost.py``), and each step
+is the JAX mesh step: ``train_batch_size`` is the global batch, each rank
+loads its block of it (with accumulation its block of each global chunk),
+the losses are global-batch losses and the gradients are summed over the
+ranks (``train/steps.py``). All ranks start from rank 0's state; each
+draws its device augmentation from its own generator (seed + rank). Test
+batches are padded to the world multiple; the exact metric takes the
+disparities gathered to rank 0, the device histogram is summed over the
+ranks. Only rank 0 writes train.log, metrics.json, checkpoints and
+images; the other ranks log warnings to stderr. The deadline and
+max_train_iter are rank 0's. A world that does not divide the batch
+raises (the JAX mesh shrinks instead: ``parallel/mesh.py``).
+
+Debug images (``write_debug_images``): rank 0 writes the JAX worker's 2x3
+grid of one frame every 256 training batches (train_EEE_BBBB.png) and
+every 8 test batches (test_EEE_BBBB.png), and errs.png, the per-epoch
+loss curves from metrics.json, after each test epoch, without matplotlib
+(``utils/plots.py``; the titles and the legend go to train.log). As in
+JAX, a failure there is logged and never stops a run.
+
+Departure: no geo_oor_frac (the JAX warp kernels drop flow beyond
 +-max_shift and that metric counts it; this package's flow warp drops
 none).
 """
@@ -49,8 +69,13 @@ from ..data import (BASE_FIELDS, CachedTrackDataset, DataLoader,
                     decode_batch_np, decode_disp_np, encode_batch,
                     has_wire_cache, load_settings)
 from ..data.dataset import SyntheticSource
+from ..data.imgproc import write_png
 from ..device import resolve_device
+from ..parallel import (all_gather_batch, barrier, broadcast_object,
+                        check_batch_divides, default_group, replicate_state)
+from ..parallel import multihost
 from ..utils import metric as metric_lib
+from ..utils import plots
 from .checkpoint import (StateCheckpointer, load_net_params, net_params_path,
                          save_net_params)
 from .objective import make_loss_context
@@ -92,6 +117,12 @@ class Worker:
                  source: SyntheticSource | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank, self.world = multihost.rank(), multihost.world_size()
+        if self.world > 1 and not cfg.use_mesh:
+            raise ValueError(f"use_mesh=False in a launch of {self.world} "
+                             "processes: each would train alone")
+        self.group = default_group()
+        self.primary = multihost.is_primary()
         self.source = source
         if source is not None:
             self.settings = source.settings
@@ -110,7 +141,10 @@ class Worker:
         self._init_seed(cfg.seed)
         logging.info(f"device: {self.device}"
                      + (f" ({torch.cuda.get_device_name(self.device)})"
-                        if self.device.type == "cuda" else ""))
+                        if self.device.type == "cuda" else "")
+                     + (f"; data parallel over {self.world} processes "
+                        f"(rank {self.rank})" if self.group is not None
+                        else ""))
 
         if cfg.flow_source == "rigid" and cfg.data_type != "synthetic":
             raise ValueError("--flow_source rigid needs GT disparity "
@@ -129,24 +163,27 @@ class Worker:
             use_pseudo_gt=cfg.use_pseudo_gt, lcn_radius=cfg.lcn_radius,
             augment=cfg.device_augment, flow_source=cfg.flow_source,
             flow_net=flow_net,
-            photometric_pyramid=cfg.photometric_pyramid)
+            photometric_pyramid=cfg.photometric_pyramid, group=self.group)
         self.accum_steps = self._resolve_accum()
+        check_batch_divides(cfg.train_batch_size, self.world,
+                            self.accum_steps)
         if self.accum_steps > 1:
             logging.info(f"gradient accumulation: {self.accum_steps} "
                          "microbatches per optimizer step")
-        self.ckpt = StateCheckpointer(self.exp_dir)
+        self.ckpt = StateCheckpointer(self.exp_dir, group=self.group)
         self.current_epoch = 0
 
     # ------------------------------------------------------------- setup
     def _resolve_accum(self) -> int:
-        """0 = auto, the JAX worker's rule (one device): 2 microbatches for
-        DIS-MF without remat at bs >= 4 (even) and >= 512x432 frames, where
-        the JAX graph did not fit a 16 GiB TPU; 1 otherwise. The card has
-        the memory for one; the rule stays so that the same flags compute
-        the same masked-mean statistic in both packages."""
+        """0 = auto, the JAX worker's rule on the per-rank batch (its
+        per-device batch): 2 microbatches for DIS-MF without remat at bs >=
+        4 (even) and >= 512x432 frames, where the JAX graph did not fit a 16
+        GiB TPU; 1 otherwise. The card has the memory for one; the rule
+        stays so that the same flags compute the same masked-mean statistic
+        in both packages."""
         if self.cfg.accum_steps > 0:
             return self.cfg.accum_steps
-        bs = self.cfg.train_batch_size
+        bs = self.cfg.train_batch_size // self.world
         H, W = self.imsize
         if (self.architecture == "multi_frame" and not self.cfg.mf_remat
                 and bs >= 4 and H * W >= 512 * 432 and bs % 2 == 0):
@@ -155,6 +192,10 @@ class Worker:
 
     def _setup_logging(self):
         del logging.root.handlers[:]
+        if not self.primary:            # warnings to stderr, no train.log
+            logging.basicConfig(level=logging.WARNING,
+                                handlers=[logging.StreamHandler()])
+            return
         logging.basicConfig(
             level=logging.INFO,
             handlers=[logging.FileHandler(str(self.exp_dir / "train.log")),
@@ -181,7 +222,9 @@ class Worker:
         d[str(key)] = val
 
     def metric_save(self):
-        self.metric_path.write_text(json.dumps(self.metric_data, indent=2))
+        if self.primary:
+            self.metric_path.write_text(json.dumps(self.metric_data,
+                                                   indent=2))
 
     def _init_seed(self, seed):
         logging.info(f"Set seed to {seed}")
@@ -267,7 +310,8 @@ class Worker:
     def make_train_step(self, state: TrainState):
         raise NotImplementedError
 
-    def make_eval_step(self, model: torch.nn.Module):
+    def make_eval_step(self, model: torch.nn.Module, ctx=None):
+        """The eval step on ``ctx`` (None: the worker's)."""
         raise NotImplementedError
 
     # ---------------------------------------------------------- commands
@@ -285,12 +329,18 @@ class Worker:
             raise ValueError(f"invalid cmd {cmd!r}")
 
     def init_state(self) -> TrainState:
-        return TrainState.create(self.make_model(), self.cfg.learning_rate,
-                                 seed=self.cfg.seed, device=self.device)
+        """A fresh state; every rank takes rank 0's parameters, and its own
+        generator (seed + rank)."""
+        state = TrainState.create(self.make_model(), self.cfg.learning_rate,
+                                  seed=self.cfg.seed + self.rank,
+                                  device=self.device)
+        replicate_state(state.model, state.optimizer, self.group)
+        return state
 
     def _loader(self, dset, batch_size, train: bool) -> DataLoader:
-        """Batches as (the wire-encoded host batch, its tensors on the
-        device), encoded and copied on the loader's thread."""
+        """This rank's part of each global batch as (the wire-encoded host
+        batch, its tensors on the device), encoded and copied on the
+        loader's thread."""
         device = self.device
 
         def transform(b):
@@ -298,7 +348,15 @@ class Worker:
             return enc, batch_to_torch(enc, device)
         return DataLoader(dset, batch_size, shuffle=train,
                           num_workers=self.cfg.num_workers, drop_last=train,
-                          transform=transform)
+                          transform=transform, rank=self.rank,
+                          world=self.world,
+                          accum=self.accum_steps if train else 1)
+
+    def _save_net_params(self, epoch: int, model) -> None:
+        if self.primary:
+            path = save_net_params(self.exp_dir, epoch, model)
+            logging.info(f"saved network to {path}")
+        barrier(self.group)
 
     # ------------------------------------------------------------- train
     def train(self, resume=True) -> TrainState:
@@ -314,17 +372,23 @@ class Worker:
             restored = self.ckpt.restore(state)
             if restored is not None:
                 _, saved_epoch, saved_min = restored
+                replicate_state(state.model, state.optimizer, self.group)
                 epoch0 = saved_epoch + 1
                 min_err.update(saved_min)
                 logging.info(f"Resumed from epoch {saved_epoch}")
+        # rank 0's cap: the ranks must run the same number of steps
+        self.cfg.max_train_iter = broadcast_object(self.cfg.max_train_iter,
+                                                   self.group)
 
         for epoch in range(epoch0, self.cfg.epochs):
-            if self.cfg.deadline_ts and time.time() > self.cfg.deadline_ts:
+            late = bool(self.cfg.deadline_ts
+                        and time.time() > self.cfg.deadline_ts)
+            if broadcast_object(late, self.group):
                 logging.info(f"deadline reached before epoch {epoch}; "
                              "stopping cleanly")
                 break
             self.current_epoch = epoch
-            self.train_epoch(epoch, train_step, train_set)
+            self.train_epoch(epoch, train_step, train_set, state.model)
             errs = self.test(epoch, state.model, test_sets)
             if (epoch + 1) % self.cfg.save_frequency == 0:
                 self.ckpt.save(epoch, state, min_err)
@@ -334,15 +398,17 @@ class Worker:
                         min_err[name] = err
                         StateCheckpointer(
                             self.exp_dir, name=f"state_set_{name}_best",
-                            max_to_keep=1).save(epoch, state, min_err)
+                            max_to_keep=1, group=self.group).save(
+                                epoch, state, min_err)
                         logging.info(f"new best for test set {name}: "
                                      f"{err:.5f}")
-                path = save_net_params(self.exp_dir, epoch, state.model)
-                logging.info(f"saved network to {path}")
+                self._save_net_params(epoch, state.model)
         logging.info("Finished training")
         return state
 
-    def train_epoch(self, epoch, train_step, dset) -> None:
+    def train_epoch(self, epoch, train_step, dset, model=None) -> None:
+        """One epoch of ``train_step`` over ``dset``; ``model`` (the one
+        the step trains) draws the debug images, None draws none."""
         logging.info("=" * 80)
         logging.info(f"Train epoch {epoch}")
         dset.current_epoch = epoch
@@ -351,7 +417,7 @@ class Worker:
         comps_acc, n_done = None, 0
         t_data = t_step = 0.0
         t0 = time.perf_counter()
-        for batch_idx, (_, batch) in enumerate(loader):
+        for batch_idx, (host, batch) in enumerate(loader):
             if 0 < self.cfg.max_train_iter <= batch_idx:
                 break
             t1 = time.perf_counter()
@@ -365,6 +431,8 @@ class Worker:
                     f"train e{epoch}: {batch_idx + 1}/{n_batches}: loss="
                     f"{cvals.sum():0.4f}=" + "+".join(f"{c:0.4f}"
                                                       for c in cvals))
+                self.callback_train_batch(epoch, batch_idx, model, host,
+                                          batch)
             t0 = time.perf_counter()
             t_step += t0 - t1
         logging.info(f"timings: data {t_data:.2f} s, step {t_step:.2f} s "
@@ -378,6 +446,22 @@ class Worker:
         self.metric_add_train(epoch, "loss", mean_loss)
         self.metric_save()
         logging.info(f"avg train_loss={sum(mean_loss):0.4f}")
+
+    def callback_train_batch(self, epoch, batch_idx, model, host, batch):
+        """The debug image of a training batch every 256 batches (rank 0:
+        its block starts with the global batch's first sample), from a
+        forward without the group's collectives."""
+        if not (self.cfg.write_debug_images and self.primary
+                and batch_idx % 256 == 0 and model is not None):
+            return
+        try:
+            step = self.make_eval_step(model, self.ctx._replace(group=None))
+            disp0, _ = step(batch, epoch)
+            self.write_debug_image(
+                self.exp_dir / f"train_{epoch:03d}_{batch_idx:04d}.png",
+                decode_disp_np(disp0.cpu().numpy()), host)
+        except Exception as e:      # debug images must never stop a run
+            logging.warning(f"debug image failed: {e}")
 
     # -------------------------------------------------------------- test
     def test(self, epoch, model, test_sets):
@@ -409,27 +493,88 @@ class Worker:
         loss_acc, n = None, 0
         for batch_idx, (host, batch) in enumerate(loader):
             disp0, comps = eval_step(batch, epoch)
+            # this rank's block starts at rank * bs_local of the global
+            # batch, whose first n_valid samples are real
+            bs_local = disp0.shape[1]
+            n_local = min(max(loader.n_valid(batch_idx)
+                              - self.rank * bs_local, 0), bs_local)
             if on_device:
-                met.add(disp0, batch.disp_gt, disp0.shape[1])
+                met.add(disp0, batch.disp_gt, n_local)
             else:
-                # u16 x256 against the decoded GT, as the JAX worker
-                es = decode_disp_np(disp0.cpu().numpy())
-                gt = decode_batch_np(host).disp_gt
-                es = es * (gt > 0)
-                met.add(es.reshape(-1, 1), gt.reshape(-1, 1))
+                # u16 x256 against the decoded GT, as the JAX worker, on
+                # the global batch gathered from every rank
+                es = all_gather_batch(disp0, 1, self.group)
+                gt = all_gather_batch(batch.disp_gt, 1, self.group)
+                if self.primary:
+                    n_valid = loader.n_valid(batch_idx)
+                    es = decode_disp_np(es.cpu().numpy())[:, :n_valid]
+                    gt = decode_disp_np(gt.cpu().numpy())[:, :n_valid]
+                    es = es * (gt > 0)
+                    met.add(es.reshape(-1, 1), gt.reshape(-1, 1))
             loss_acc = comps if loss_acc is None else loss_acc + comps
             n += 1
             if batch_idx % 25 == 0:
                 logging.info(f"test e{epoch}: {batch_idx + 1}/{len(loader)}: "
                              f"loss={float(comps.sum()):0.4f}")
+            if (self.cfg.write_debug_images and self.primary
+                    and batch_idx % 8 == 0):
+                try:
+                    es = decode_disp_np(disp0.cpu().numpy())[:, :n_local]
+                    gt = decode_batch_np(host).disp_gt[:, :n_local]
+                    self.write_debug_image(
+                        self.exp_dir / f"test_{epoch:03d}_{batch_idx:04d}.png",
+                        es * (gt > 0), host)
+                except Exception as e:
+                    logging.warning(f"debug image failed: {e}")
+        if on_device:
+            met.all_reduce(self.group)
         mean_loss = [float(c) / max(n, 1) for c in loss_acc.cpu().numpy()]
-        logging.info(f"{met}")
-        for k, v in met.items():
-            self.metric_add_test(epoch, set_idx, k, v)
+        if self.primary:
+            logging.info(f"{met}")
+            for k, v in met.items():
+                self.metric_add_test(epoch, set_idx, k, v)
         self.metric_add_test(epoch, set_idx, "loss", mean_loss)
         self.metric_save()
+        if self.primary:
+            try:                       # plots must never stop a run
+                self.write_err_img()
+            except Exception as e:
+                logging.warning(f"errs.png failed: {e}")
         logging.info(f"test epoch {epoch}: avg test_loss={sum(mean_loss):0.4f}")
         return mean_loss
+
+    def write_err_img(self):
+        """errs.png: the per-epoch total train loss and each test set's
+        total test loss (test<i>) from metrics.json, one polyline each on
+        an 800x600 canvas; the legend goes to train.log."""
+        series = {}                      # label -> (epochs, losses)
+        for ep in sorted(int(e) for e in self.metric_data):
+            d = self.metric_data[str(ep)]
+            losses = [("train", d.get("train", {}).get("loss"))] + [
+                (f"test{i}", td.get("loss"))
+                for i, td in d.get("test", {}).items()]
+            for label, loss in losses:
+                if loss is not None:
+                    xs, ys = series.setdefault(label, ([], []))
+                    xs.append(ep)
+                    ys.append(sum(loss))
+        if not series:
+            return
+        canvas, legend = plots.loss_curves(series)
+        path = self.exp_dir / "errs.png"
+        write_png(path, canvas)
+        logging.info(f"wrote {path}: {legend}")
+
+    def write_debug_image(self, out_path, es, host_batch):
+        """The 2x3 grid of the batch's first frame (``utils/plots.py``);
+        ``es`` (tl, bs, H, W) float32 px, ``host_batch`` wire-encoded."""
+        host_batch = decode_batch_np(host_batch)
+        grid, titles = plots.debug_grid(
+            host_batch.im[0, 0], host_batch.ambient[0, 0],
+            host_batch.disp_gt[0, 0].astype(np.float32), es[0, 0])
+        write_png(out_path, grid)
+        logging.info(f"wrote debug image {out_path}: "
+                     + " | ".join(titles))
 
     def retest(self, epoch=-1):
         test_sets = self.make_test_sets()

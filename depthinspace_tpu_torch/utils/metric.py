@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.multihost import all_reduce_sum
 from . import geometry3d
 
 # numpy 2 renamed trapz to trapezoid
@@ -262,7 +263,9 @@ class StreamingEvalMetric:
     quantiles are exact order statistics of the quantized errors (the
     host path interpolates between neighbours, <= 1/256 px apart). Counts
     are float32, exact up to 2^24 a bin; padded batch entries past
-    ``n_valid`` are not counted."""
+    ``n_valid`` are not counted. Under data parallelism each rank counts
+    its block and :meth:`all_reduce` sums the histograms over the ranks
+    (still float32, as the JAX mesh sums its shards)."""
 
     _SCALE = 256.0
     _BINS = 65536
@@ -300,6 +303,12 @@ class StreamingEvalMetric:
                                      device=counts.device)
         self._hist += counts.to(torch.float32)
         self._over += over.to(torch.float32)
+
+    def all_reduce(self, group) -> None:
+        """Sum the counts over the ranks of ``group`` (every rank calls it
+        once, after its last :meth:`add`)."""
+        self._hist = all_reduce_sum(self._hist, group)
+        self._over = all_reduce_sum(self._over, group)
 
     def get(self) -> dict:
         hist = self._hist.cpu().numpy().astype(np.float64)
