@@ -160,6 +160,22 @@ path; every kernel but K5 must run on it):
                DisparityServer(devices=[cuda:0, cuda:0]) answering phase
                4's 13-image request bit for bit as the one-device server.
                Every child runs under a timeout.
+22. orbax resume  the JAX package's DIS-MF state (tests/data/orbax_fixture,
+               written on the CPU by scripts/make_orbax_fixture.py: a JAX
+               worker's state/ after 2 steps, FuseNet 1 block x 32) read
+               here without orbax, tensorstore or zstandard: the zstd
+               decoder built from native/zstd_decode.cpp with g++ (seconds)
+               and its rate on the fixture's chunks (MB/s of output); the
+               restore into a FuseNet on the card (seconds), its weights
+               bit for bit equal to net_0000.params and every leaf of the
+               weights and Adam's moments, the count and the step equal to
+               expected.npz; then train_val --cmd resume (multi_frame,
+               FuseNet's block count read from the saved state, bf16, bs 4,
+               3 steps) on phase 20's samples
+               continues the JAX run at epoch 1: K1-K4 launched forward and
+               backward, finite losses, metrics.json holds epochs 0 and 1,
+               the orbax epoch stays and the port's state/1/state.pt
+               restores.
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -171,6 +187,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1177,8 +1194,11 @@ def main() -> None:
                                              mf_np, data, out))
 
     plane_scene_phase(dev, smi)
-    generated_data_phase(dev, smi, then=lambda data, out: data_parallel_phase(
-        settings, dev, smi, model, images, data, out))
+    def after_generation(data, out):
+        data_parallel_phase(settings, dev, smi, model, images, data, out)
+        orbax_resume_phase(dev, smi, data)
+
+    generated_data_phase(dev, smi, then=after_generation)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1916,6 +1936,169 @@ def generated_data_phase(dev, smi, then=None) -> None:
               f"{sum(stage_s.values()):.1f} s); {smi}")
         if then is not None:
             then(one, out)
+
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_fixture"
+
+
+def fixture_crcs(model, state) -> dict:
+    """{leaf: CRC-32} of a FuseNet's weights and its Adam moments in the
+    flax layout, named as the fixture's expected.npz names them."""
+    import zlib
+    from depthinspace_tpu_torch.models import flax_tree_from_fusenet_state_dict
+
+    def flat(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + (k,))
+            else:
+                yield ".".join(prefix + (k,)), v
+
+    names = [n for n, _ in model.named_parameters()]
+    opt = state.optimizer.state_dict()["state"]
+    out = {}
+    for key, sd in (("params", model.state_dict()),
+                    ("mu", {n: opt[i]["exp_avg"] for i, n in
+                            enumerate(names)}),
+                    ("nu", {n: opt[i]["exp_avg_sq"] for i, n in
+                            enumerate(names)})):
+        for k, a in flat(flax_tree_from_fusenet_state_dict(sd), (key,)):
+            out[k] = zlib.crc32(np.ascontiguousarray(a).tobytes())
+    return out
+
+
+def orbax_resume_phase(dev, smi, data: Path) -> None:
+    """Phase 22: a DIS-MF run that the JAX package started, continued on
+    the card from its orbax state (the committed fixture), on phase 20's
+    samples."""
+    import shutil
+    import torch
+    from depthinspace_tpu_torch import config as config_mod
+    from depthinspace_tpu_torch import train_val
+    from depthinspace_tpu_torch.data import load_settings
+    from depthinspace_tpu_torch.models import FuseNet
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.train import TrainState
+    from depthinspace_tpu_torch.train.checkpoint import (StateCheckpointer,
+                                                         load_net_params)
+    from depthinspace_tpu_torch.utils import zstd
+    from depthinspace_tpu_torch.utils.ocdbt import OcdbtStore
+    T0 = time.perf_counter()
+    # -- 22a. the decoder, built here from its source -------------------
+    so, build_s = zstd.build()
+    store = OcdbtStore(ORBAX_FIXTURE / "multi_frame" / "state" / "0" /
+                       "state")
+    frames = [store.read(k) for k in store.keys()
+              if not k.endswith(".zarray")]
+    zstd.decompress(frames[0])
+    reps = 20
+    t0 = time.perf_counter()
+    out_bytes = sum(zstd.decompress(f).size for _ in range(reps)
+                    for f in frames)
+    dec_s = time.perf_counter() - t0
+    in_bytes = reps * sum(len(f) for f in frames)
+    big = max(frames, key=len)
+    t0 = time.perf_counter()
+    big_out = sum(zstd.decompress(big).size for _ in range(reps))
+    big_s = time.perf_counter() - t0
+    print(f"[orbax] zstd decoder {so.relative_to(ROOT)} built with g++ in "
+          f"{build_s:.2f} s; {len(frames)} zarr chunks of the fixture "
+          f"decoded {reps} times: {out_bytes / dec_s / 1e6:.1f} MB/s of "
+          f"output ({in_bytes / dec_s / 1e6:.1f} MB/s of input, "
+          f"{out_bytes // reps} bytes a pass); its largest chunk ({len(big)} "
+          f"bytes to {big_out // reps}) {reps} times: "
+          f"{big_out / big_s / 1e6:.1f} MB/s of output; on the host, "
+          f"{os.cpu_count()} cores")
+
+    # -- 22b. restore into FuseNet on the card, checked bit for bit -----
+    settings = load_settings(data / "settings.pkl")
+    want = np.load(ORBAX_FIXTURE / "expected.npz")
+    exp_fixture = ORBAX_FIXTURE / "multi_frame"
+
+    def fresh_state():
+        model = FuseNet(tuple(settings.imsize), settings.K, TL,
+                        block_num=1)
+        return model, TrainState.create(model, 1e-4, device=dev)
+
+    model, state = fresh_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, epoch, min_err = StateCheckpointer(exp_fixture).restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    net = load_net_params(exp_fixture / "net_0000.params", model)
+    params_equal = all(torch.equal(net[k], v.cpu())
+                       for k, v in model.state_dict().items())
+    got = fixture_crcs(model, state)
+    expected = dict(zip(want["names"].tolist(), want["crc32"].tolist()))
+    bad = sorted(k for k in expected if got.get(k) != expected[k])
+    count = float(state.optimizer.state_dict()["state"][0]["step"])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[orbax] restore of the JAX DIS-MF state (FuseNet 1 x 32, "
+          f"{n_params} parameters, Adam's moments and count) into the card: "
+          f"{restore_s:.3f} s; epoch {epoch}, min_err {min_err}, step "
+          f"{state.step}, count {count:g}; weights equal net_0000.params "
+          f"bit for bit: {params_equal}; {len(expected) - len(bad)} of "
+          f"{len(expected)} leaves (weights, mu, nu) equal expected.npz")
+    check(params_equal, "restored weights differ from net_0000.params")
+    check(not bad and set(got) == set(expected),
+          f"restored leaves differ from expected.npz: {bad[:5]}")
+    check(epoch == 0 and state.step == int(want["step"])
+          and count == float(want["count"]),
+          f"restored epoch {epoch}, step {state.step}, count {count}")
+
+    # -- 22c. train_val --cmd resume on the card --------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        out = tmp / "out"
+        exp = out / "multi_frame"
+        shutil.copytree(exp_fixture, exp)
+        cfg = tmp / "config.json"
+        cfg.write_text(json.dumps({"OUTPUT_DIR": str(out),
+                                   "DATA_DIR": str(data)}))
+        saved_cfg = config_mod.DEFAULT_CONFIG_PATH
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            config_mod.DEFAULT_CONFIG_PATH = str(cfg)
+            train_val.main(["--architecture", "multi_frame", "--cmd",
+                            "resume", "--mf_dtype",
+                            "bfloat16", "--epochs", "2",
+                            "--train_batch_size", "4", "--max_train_iter",
+                            "3"], device=dev)
+            torch.cuda.synchronize()
+        finally:
+            config_mod.DEFAULT_CONFIG_PATH = saved_cfg
+            close_logs()
+        resume_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        metrics = json.loads((exp / "metrics.json").read_text())
+        loss = metrics.get("1", {}).get("train", {}).get("loss", [])
+        log = (exp / "train.log").read_text()
+        _, again = fresh_state()
+        back = StateCheckpointer(exp).restore(again)
+        print(f"[orbax] train_val --cmd resume (multi_frame, bf16, bs 4, 3 "
+              f"steps) on phase 20's samples: {resume_s:.1f} s; epochs in "
+              f"metrics.json {sorted(metrics)}; epoch 1 train components "
+              f"{np.array2string(np.array(loss), precision=5)}; kernel "
+              f"launches {counts}; state/ holds "
+              f"{sorted(p.name for p in (exp / 'state').iterdir())}; "
+              f"state/1/state.pt restores to epoch "
+              f"{None if back is None else back[1]}")
+        check("Resumed from epoch 0" in log, "the resume did not start at "
+              "epoch 1")
+        check("FuseNet with 1 fusion blocks, as the saved state" in log,
+              "the resume did not take the saved state's block count")
+        check(sorted(metrics) == ["0", "1"] and len(loss) == 4
+              and np.isfinite(loss).all(), f"metrics after resume {metrics}")
+        for k in K1_K4:
+            check(counts.get(k, 0) > 0, f"{k} never launched in the resume")
+        check((exp / "state" / "0" / "_CHECKPOINT_METADATA").is_file(),
+              "the JAX epoch was removed")
+        check(back is not None and back[1] == 1
+              and (exp / "state" / "1" / "state.pt").is_file(),
+              "the port's state/1/state.pt does not restore")
+    print(f"[orbax] phase 22 {time.perf_counter() - T0:.1f} s; {smi}")
+
 
 FLOWNET = ROOT / "output" / "flownet.msgpack"
 FLOW_CROP = (256, 224)                    # train_flow's default crop

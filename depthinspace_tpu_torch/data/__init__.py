@@ -10,8 +10,8 @@ _EXPORTS = {
     "batch": ("Batch", "batch_to_torch"),
     "cache": ("BASE_FIELDS", "CACHE_DIR_NAME", "CachedTrackDataset",
               "build_wire_cache", "has_wire_cache"),
-    "dataset": ("DataLoader", "SyntheticSource", "SyntheticTrackDataset",
-                "TrackDataset", "collate"),
+    "dataset": ("DataLoader", "MultiDataset", "SyntheticSource",
+                "SyntheticTrackDataset", "TrackDataset", "collate"),
     "fixture": ("generate_dataset",),
     "settings": ("Settings", "load_settings", "save_settings"),
     "synthetic": ("make_settings", "make_dot_pattern", "make_track_batch",

@@ -18,7 +18,7 @@ takes.
 
 ``SyntheticTrackDataset`` serves in-memory samples made by
 ``data/synthetic.py`` with the same ``__getitem__`` dict, for runs without a
-dataset on disk.
+dataset on disk. ``MultiDataset`` concatenates datasets.
 """
 
 from __future__ import annotations
@@ -213,6 +213,40 @@ class SyntheticTrackDataset:
         if self.load_primary:
             ret["primary_disp"] = b.primary_disp[ti, 0]
         return ret
+
+
+class MultiDataset:
+    """The concatenation of datasets: sample i of the whole is sample i -
+    offset of the dataset that holds it."""
+
+    def __init__(self, *datasets):
+        self.datasets = []
+        self.cum_n_samples = [0]
+        self.current_epoch = 0
+        for d in datasets:
+            self.append(d)
+
+    def append(self, dataset):
+        self.datasets.append(dataset)
+        self.cum_n_samples.append(self.cum_n_samples[-1] + len(dataset))
+
+    def dataset_updated(self):
+        """Recount after a member dataset changed its length."""
+        self.cum_n_samples = [0]
+        for d in self.datasets:
+            self.cum_n_samples.append(self.cum_n_samples[-1] + len(d))
+
+    def __len__(self):
+        return self.cum_n_samples[-1]
+
+    def __getitem__(self, idx):
+        didx = int(np.searchsorted(self.cum_n_samples, idx,
+                                   side="right")) - 1
+        return self.datasets[didx][idx - self.cum_n_samples[didx]]
+
+    @property
+    def track_length(self):
+        return self.datasets[0].track_length
 
 
 def collate(samples: Sequence[dict]) -> Batch:

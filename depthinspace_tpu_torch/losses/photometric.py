@@ -15,6 +15,9 @@ from ..ops.resample import warp_pattern
 from .reduce import global_mean, global_ratio
 
 
+warp_pattern_by_disparity = warp_pattern      # the JAX package's name
+
+
 def photometric_loss(disp: torch.Tensor, im: torch.Tensor,
                      pattern: torch.Tensor, std: torch.Tensor | None = None,
                      block_size: int = 9, eps: float = 0.5, group=None):

@@ -22,6 +22,11 @@ weight``. Conv kernels HWIO become OIHW, Dense kernels (in, out) become
 (out, in), GroupNorm's scale is the weight; the head's ``predict_disp/
 Conv_0`` is ``predict_disp.conv``.
 
+An output head's tree (``models/heads.py``) holds one module: a 3x3
+conv's kernel and bias (linear, disp, pos) or a per-row linear map's
+kernel (H, Ci, F) and bias (H, F) (disp_row, pos_row), which becomes the
+port's (H, F, Ci) weight.
+
 FlowNet's tree has 40 leaves, ``encoder/{down,conv}{0..3}`` and
 ``level{1,2,3}/{dec0,dec1,dec2,flow_head}``, each a 3x3 conv's kernel
 (HWIO -> OIHW) and bias; the port's FlowNet has the same module names.
@@ -203,3 +208,23 @@ def flax_tree_from_flownet_state_dict(sd: Mapping) -> dict:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return {"params": params}
+
+
+_HEAD_PREFIX = {"linear": "", "disp": "conv.", "disp_row": "linear.",
+                "pos": "proj.", "pos_row": "proj."}
+
+
+def head_state_dict_from_flax(tree: Mapping, kind: str) -> dict:
+    """``tree``: the flax variables of a ``make_output_head(kind)`` head,
+    with or without the top-level "params" key, as a ``state_dict`` of the
+    port's head of that kind."""
+    p = tree["params"] if "params" in tree else tree
+    if "kernel" not in p:               # the head's one submodule
+        (p,) = p.values()
+    k = np.asarray(p["kernel"], np.float32)
+    if k.ndim == 4:
+        w = _conv(k)
+    else:                               # (H, Ci, F) -> (H, F, Ci)
+        w = torch.from_numpy(np.array(k.transpose(0, 2, 1), order="C"))
+    prefix = _HEAD_PREFIX[kind]
+    return {prefix + "weight": w, prefix + "bias": _bias(p["bias"])}

@@ -9,6 +9,10 @@ The gradient goes to ``es`` only (``ta``, the IR image, gets none), as in
 the JAX custom VJP. ``census_sad`` runs kernels K1 and K1 bwd
 (``csrc/census_sad.cu``) on a CUDA tensor and ``census_sad_plain`` and
 ``census_sad_bwd_plain`` on a CPU tensor.
+
+``photometric_dissimilarity`` is the JAX package's dispatch over the
+reference op's four types: census_sad (the function above, K1 on the card)
+and mse, sad and census_mse, plain tensor code off the training path.
 """
 
 from __future__ import annotations
@@ -112,3 +116,33 @@ def census_sad(es: torch.Tensor, ta: torch.Tensor, block_size: int = 9,
     """K1 on a CUDA tensor, the plain version on a CPU tensor; differentiable
     with respect to es."""
     return CensusSAD.apply(es, ta, block_size, eps)
+
+
+def photometric_dissimilarity(es: torch.Tensor, ta: torch.Tensor,
+                              block_size: int = 9,
+                              loss_type: str = "census_sad",
+                              eps: float = 0.5) -> torch.Tensor:
+    """The per-pixel dissimilarity of es and ta (N, H, W) over the BxB
+    window (replicate padding): census_sad; mse or sad, the mean squared or
+    absolute difference of the shifted images; census_mse, the mean squared
+    difference of their soft census transforms."""
+    loss_type = loss_type.lower()
+    if loss_type == "census_sad":
+        return census_sad(es, ta, block_size, eps)
+    if loss_type not in ("mse", "sad", "census_mse"):
+        raise ValueError(f"invalid loss type {loss_type!r}")
+    N, H, W = es.shape
+    p = block_size // 2
+    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
+    acc = torch.zeros_like(es)
+    for dy in range(block_size):
+        for dx in range(block_size):
+            es_o = es_pad[:, dy:dy + H, dx:dx + W]
+            ta_o = ta_pad[:, dy:dy + H, dx:dx + W]
+            if loss_type == "census_mse":
+                d = (_soft_heaviside(es_o - es, eps)
+                     - _soft_heaviside(ta_o - ta, eps))
+            else:
+                d = es_o - ta_o
+            acc = acc + (torch.abs(d) if loss_type == "sad" else d * d)
+    return acc / block_size ** 2

@@ -111,6 +111,14 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int,
     return out.to(x.dtype)
 
 
+def resize_mask(mask: torch.Tensor, height: int,
+                width: int) -> torch.Tensor:
+    """Resize a binary mask (N, h, w, C) bilinearly (align_corners) and
+    threshold it at 0.5 again, in the mask's dtype."""
+    out = resize_bilinear(mask, height, width, align_corners=True)
+    return (out > 0.5).to(mask.dtype)
+
+
 def resize_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Resize a flow field (N, h, w, 2) and rescale its values by the size
     ratio (u by width / w, v by height / h)."""

@@ -5,8 +5,9 @@
 pattern as the IR image, headlight Lambert shading as the ambient image).
 
 The library is built from ``native/render.cpp`` with ``g++`` at first use,
-into ``build/render/<hash>/librender.so`` at the repository root; the hash
-covers the source and the flags, so an edited source is rebuilt. The
+into ``build/render/<hash>/librender.so`` at the repository root
+(``utils/cbuild.py``); the hash covers the source and the flags, so an
+edited source is rebuilt. The
 flags carry no ``-march``, and ``-ffp-contract=off`` keeps the compiler
 from fusing multiply-adds, so one seed renders the same images on any
 x86-64 host. Each process compiles into a file of its own and renames it
@@ -21,50 +22,29 @@ The renderer runs on the host; it has no device path.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 
+from ..utils import cbuild
+
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "render.cpp"
 BUILD_ROOT = _ROOT / "build" / "render"
-CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
 
 _lib = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / "librender.so"
+    return cbuild.library_path(SOURCE, BUILD_ROOT, "librender.so", CXX_FLAGS)
 
 
 def build() -> tuple[Path, float]:
     """Compile the library unless it is already built. Returns (path,
     seconds spent compiling; 0.0 when it was built before)."""
-    so = library_path()
-    if so.exists():
-        return so, 0.0
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"librender.{os.getpid()}.tmp.so")
-    cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"{CXX} not found: {e}") from e
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{CXX} failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
-    seconds = time.perf_counter() - t0
-    os.replace(tmp, so)
-    return so, seconds
+    return cbuild.build_library(SOURCE, BUILD_ROOT, "librender.so",
+                                CXX_FLAGS)
 
 
 def _load_lib():

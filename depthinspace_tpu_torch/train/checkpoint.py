@@ -4,8 +4,14 @@ same three artifacts in the experiment directory:
 1. ``state/``: a rolling full training state (model, Adam, step, the step's
    generator, the host's numpy and python RNG, {epoch, min_err}), one
    ``<epoch>/state.pt`` file per saved epoch in this package's own
-   ``torch.save`` format, the newest ``max_to_keep`` kept. (The JAX package
-   writes orbax directories there, which this package cannot read.)
+   ``torch.save`` format, the newest ``max_to_keep`` kept. The JAX package
+   writes orbax step directories there (``<epoch>/`` with
+   ``_CHECKPOINT_METADATA`` and ``state/manifest.ocdbt``), which this
+   package reads too (``train/orbax_state.py``): ``restore`` takes the
+   newest epoch of either kind (the port's own file when one epoch has
+   both), so ``--cmd resume`` continues a run the JAX worker started. The
+   rolling deletion removes only this package's files: an orbax directory
+   stays.
 2. ``state_set_<name>_best/``: the same, for the best epoch of a test set.
 3. ``net_%04d.params``: the DispNet or FuseNet weights in flax msgpack
    (``utils/flax_msgpack.py``), the file the JAX package's retest and
@@ -32,6 +38,7 @@ from ..models import (FuseNet, dispnet_state_dict_from_flax,
                       fusenet_state_dict_from_flax)
 from ..parallel.multihost import all_gather_object, barrier
 from ..utils import flax_msgpack
+from .orbax_state import OrbaxStep, is_orbax_step, restore_from_orbax
 from .state import TrainState
 
 
@@ -77,15 +84,32 @@ class StateCheckpointer:
         self.group = group
         self.rank = 0 if group is None else torch.distributed.get_rank(group)
 
-    def _epochs(self) -> list[int]:
+    def _epochs(self, orbax: bool = True) -> list[int]:
+        """The saved epochs: this package's files, and with ``orbax`` the
+        JAX package's step directories."""
         if not self.dir.is_dir():
             return []
         return sorted(int(d.name) for d in self.dir.iterdir()
-                      if d.name.isdigit() and (d / self.FILE).exists())
+                      if d.name.isdigit() and ((d / self.FILE).exists()
+                                               or orbax and is_orbax_step(d)))
 
     def latest_epoch(self) -> int | None:
         epochs = self._epochs()
         return epochs[-1] if epochs else None
+
+    def saved_modules(self) -> set[str] | None:
+        """The top-level module names of the model in the newest saved
+        epoch (FuseNet's ``block<i>`` are named alike in both packages),
+        from its index alone; None when nothing is saved."""
+        epoch = self.latest_epoch()
+        if epoch is None:
+            return None
+        path = self.dir / str(epoch) / self.FILE
+        if not path.exists():
+            return OrbaxStep(path.parent).modules()
+        payload = torch.load(path, map_location="cpu", mmap=True,
+                             weights_only=False)
+        return {k.split(".")[0] for k in payload["model"]}
 
     def save(self, epoch: int, state: TrainState, min_err: dict) -> None:
         generators = all_gather_object(state.generator.get_state(),
@@ -112,18 +136,27 @@ class StateCheckpointer:
         tmp = out / (self.FILE + ".tmp")
         torch.save(payload, tmp)
         os.replace(tmp, out / self.FILE)
-        for old in self._epochs()[:-self.max_to_keep]:
-            shutil.rmtree(self.dir / str(old))
+        for old in self._epochs(orbax=False)[:-self.max_to_keep]:
+            d = self.dir / str(old)
+            if is_orbax_step(d):        # the JAX package's: keep it
+                (d / self.FILE).unlink()
+            else:
+                shutil.rmtree(d)
 
     def restore(self, state: TrainState):
         """Loads the newest saved epoch into ``state`` (model, optimizer,
         step, generator) and the host RNGs. Returns (state, epoch, min_err),
         or None when nothing is saved. A rank takes its own generator back
         when the file was written by a run of as many ranks; else rank 0
-        takes the saved one and the other ranks keep their seeded ones."""
+        takes the saved one and the other ranks keep their seeded ones. An
+        orbax step directory is read by every rank, each seeding its
+        generator from the saved key plus its rank."""
         epoch = self.latest_epoch()
         if epoch is None:
             return None
+        if not (self.dir / str(epoch) / self.FILE).exists():
+            return restore_from_orbax(self.dir / str(epoch), state,
+                                      rank=self.rank)
         # this package's own file: it holds numpy and python RNG states
         payload = torch.load(self.dir / str(epoch) / self.FILE,
                              map_location="cpu", weights_only=False)

@@ -6,6 +6,9 @@ in-memory synthetic samples the primary is the source's seeded stand-in
 
 from __future__ import annotations
 
+import logging
+import re
+
 import torch
 
 from ..models import FuseNet, init_fusenet_
@@ -15,6 +18,19 @@ from .worker import Worker
 
 class MultiFrameWorker(Worker):
     architecture = "multi_frame"
+    block_num = 4                       # the JAX CLI's FuseNet
+
+    def init_state(self, resume: bool = False):
+        """On resume, FuseNet takes as many fusion blocks as the newest
+        saved state holds (the JAX package's or this one's)."""
+        modules = self.ckpt.saved_modules() if resume else None
+        if modules is not None:
+            n = sum(bool(re.fullmatch(r"block\d+", m)) for m in modules)
+            if n != self.block_num:
+                logging.info(f"FuseNet with {n} fusion blocks, as the saved "
+                             "state")
+            self.block_num = n
+        return super().init_state(resume)
 
     def make_model(self) -> FuseNet:
         """A seeded init (flax's defaults; the JAX package's init draws
@@ -22,6 +38,7 @@ class MultiFrameWorker(Worker):
         H, W = self.imsize
         model = FuseNet(imsize=(H, W), K=self.settings.K,
                         track_length=self.cfg.track_length,
+                        block_num=self.block_num,
                         max_disp=self.cfg.max_disp,
                         compute_dtype=getattr(torch, self.cfg.mf_dtype),
                         use_remat=self.cfg.mf_remat)

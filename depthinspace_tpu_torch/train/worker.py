@@ -76,6 +76,7 @@ from ..parallel import (all_gather_batch, barrier, broadcast_object,
 from ..parallel import multihost
 from ..utils import metric as metric_lib
 from ..utils import plots
+from ..utils.gtimer import PhaseTimer, Progress
 from .checkpoint import (StateCheckpointer, load_net_params, net_params_path,
                          save_net_params)
 from .objective import make_loss_context
@@ -328,9 +329,10 @@ class Worker:
         else:
             raise ValueError(f"invalid cmd {cmd!r}")
 
-    def init_state(self) -> TrainState:
+    def init_state(self, resume: bool = False) -> TrainState:
         """A fresh state; every rank takes rank 0's parameters, and its own
-        generator (seed + rank)."""
+        generator (seed + rank). ``resume``: the newest saved state will be
+        loaded into it (a subclass may shape its model after that state)."""
         state = TrainState.create(self.make_model(), self.cfg.learning_rate,
                                   seed=self.cfg.seed + self.rank,
                                   device=self.device)
@@ -364,7 +366,7 @@ class Worker:
         logging.info("Start training")
         train_set = self.make_train_set()
         test_sets = self.make_test_sets()
-        state = self.init_state()
+        state = self.init_state(resume)
         train_step = self.make_train_step(state)
         epoch0 = 0
         min_err = {ts.name: 1e9 for ts in test_sets}
@@ -414,29 +416,32 @@ class Worker:
         dset.current_epoch = epoch
         loader = self._loader(dset, self.cfg.train_batch_size, train=True)
         n_batches = len(loader)
+        sw, bar = PhaseTimer(), Progress(n_batches)
         comps_acc, n_done = None, 0
-        t_data = t_step = 0.0
-        t0 = time.perf_counter()
+        sw.begin("total")
+        sw.begin("data")
         for batch_idx, (host, batch) in enumerate(loader):
             if 0 < self.cfg.max_train_iter <= batch_idx:
                 break
-            t1 = time.perf_counter()
-            t_data += t1 - t0
+            sw.end("data")
+            sw.begin("step")
             comps = train_step(batch, epoch)
             comps_acc = comps if comps_acc is None else comps_acc + comps
             n_done += 1
+            sw.end("step")
+            bar.step()
             if (epoch <= 1 and batch_idx < 128) or batch_idx % 16 == 0:
                 cvals = comps.cpu().numpy()
                 logging.info(
                     f"train e{epoch}: {batch_idx + 1}/{n_batches}: loss="
                     f"{cvals.sum():0.4f}=" + "+".join(f"{c:0.4f}"
-                                                      for c in cvals))
+                                                      for c in cvals)
+                    + f" | {bar.elapsed_str()} / {bar.remaining_str()}")
                 self.callback_train_batch(epoch, batch_idx, model, host,
                                           batch)
-            t0 = time.perf_counter()
-            t_step += t0 - t1
-        logging.info(f"timings: data {t_data:.2f} s, step {t_step:.2f} s "
-                     f"over {n_done} steps")
+            sw.begin("data")
+        sw.end("total")
+        logging.info(f"timings: {sw}")
         if comps_acc is None:
             raise RuntimeError(
                 f"train epoch produced 0 batches: {len(dset)} samples with "

@@ -6,7 +6,9 @@ same statistics on the device at the wire resolution. Both fill
 ``metrics.json``'s ``dist2_*`` and ``of{t}`` keys. The host metrics that no
 worker uses are here too: ``RelativeDistanceMetric``,
 ``RotmDistanceMetric``, ``QuaternionDistanceMetric`` (over
-``utils/geometry3d.py``'s distances) and ``BinaryAccuracyMetric``.
+``utils/geometry3d.py``'s distances) and ``BinaryAccuracyMetric``, and
+the plain functions ``mse``, ``rmse``, ``mae`` and ``outlier_fraction``
+over the pixels where ``mask`` is nonzero.
 """
 
 from __future__ import annotations
@@ -19,6 +21,38 @@ from . import geometry3d
 
 # numpy 2 renamed trapz to trapezoid
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def mse(estimate, target, mask=None):
+    estimate, target, mask = _process(estimate, target, mask)
+    return np.sum((estimate[mask] - target[mask]) ** 2) / mask.sum()
+
+
+def rmse(estimate, target, mask=None):
+    return np.sqrt(mse(estimate, target, mask))
+
+
+def mae(estimate, target, mask=None):
+    estimate, target, mask = _process(estimate, target, mask)
+    return np.abs(estimate[mask] - target[mask]).sum() / mask.sum()
+
+
+def outlier_fraction(estimate, target, mask=None, threshold=0):
+    estimate, target, mask = _process(estimate, target, mask)
+    diff = np.abs(estimate[mask] - target[mask])
+    return (diff > threshold).sum() / mask.sum()
+
+
+def _process(estimate, target, mask):
+    if estimate.shape != target.shape:
+        raise ValueError("estimate and target must have the same shape")
+    if mask is None:
+        mask = np.ones(estimate.shape, dtype=bool)
+    else:
+        mask = mask != 0
+    if estimate.shape != mask.shape:
+        raise ValueError("mask must match estimate shape")
+    return estimate, target, mask
 
 
 class Metric:

@@ -1,6 +1,7 @@
 """The DIS-MF path of the port against the JAX package on the CPU, on the
 same numpy inputs and weights: the MF geometric loss and loss vector, the
-eval step, the train step (3 steps, accumulation, the "pred" flow source),
+eval step, the train step (3 steps, resumed from the JAX package's orbax
+state, accumulation, the "pred" flow source),
 TrackDisparityServer, and the worker on a fixture dataset with presaved
 primary disparities.
 
@@ -27,6 +28,8 @@ from depthinspace_tpu.models import DispNet as JaxDispNet
 from depthinspace_tpu.models import FuseNet as JaxFuseNet
 from depthinspace_tpu.serve import TrackDisparityServer as JaxTrackServer
 from depthinspace_tpu.train import objective as jax_objective
+from depthinspace_tpu.train.checkpoint import \
+    StateCheckpointer as JaxCheckpointer
 from depthinspace_tpu.train.state import TrainState as JaxTrainState
 from depthinspace_tpu.train.steps import _make_step_fns
 from depthinspace_tpu_torch.config import RunConfig
@@ -39,6 +42,7 @@ from depthinspace_tpu_torch.serve import TrackDisparityServer
 from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
                                           make_mf_eval_step,
                                           make_mf_train_step, mf_losses)
+from depthinspace_tpu_torch.train.checkpoint import StateCheckpointer
 from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
 
 H, W, TL = 64, 56, 4
@@ -164,21 +168,30 @@ def test_mf_eval_step_matches_jax(setup, flow_source):
 
 
 def _jax_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3):
-    """The JAX MF train step run op by op, n_steps times."""
+    """The JAX MF train step run op by op, n_steps times: the states (the
+    first one and after each step) and each step's components."""
     s, _, jm, params, _ = setup
     ctx = jax_objective.make_loss_context(s, track_length=TL,
                                           flow_source=flow_source)
     opt = optax.adam(1e-4)
     train_step, _, consts = _make_step_fns(jm, ctx, opt, "multi_frame",
                                            accum_steps=accum_steps)
-    state = JaxTrainState.create(params, opt, jax.random.key(1))
+    states = [JaxTrainState.create(params, opt, jax.random.key(1))]
     out = []
     with jax.disable_jit():
         for _ in range(n_steps):
-            state, comps = train_step(state, JaxBatch(**b._asdict()),
+            state, comps = train_step(states[-1], JaxBatch(**b._asdict()),
                                       jnp.asarray(0.0), consts)
+            states.append(state)
             out.append(np.asarray(comps))
-    return out
+    return states, out
+
+
+@pytest.fixture(scope="module")
+def three_jax_steps(setup):
+    """3 JAX steps on one bs = 1 batch: (batch, states, components)."""
+    b = _batch(setup[0], 1)
+    return (b,) + _jax_steps(setup, b)
 
 
 def _port_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3):
@@ -194,13 +207,12 @@ def _port_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3):
     return m, out
 
 
-def test_mf_train_step_matches_jax_for_three_steps(setup):
+def test_mf_train_step_matches_jax_for_three_steps(setup, three_jax_steps):
     """Adam(1e-4), f32, bs = 1: the 4 components within rtol 1e-4 at each
     of 3 steps (measured <= 5.3e-5, the smoothness term at step 2), and the
     first step's gradient within 1e-3 relative L2 over all parameters."""
     s, K, jm, params, params_np = setup
-    b = _batch(s, 1)
-    ref = _jax_steps(setup, b)
+    b, _, ref = three_jax_steps
     ctx = jax_objective.make_loss_context(s, track_length=TL)
     jb = JaxBatch(**b._asdict())
     from depthinspace_tpu.train.steps import _mf_forward as jax_mf_forward
@@ -231,6 +243,31 @@ def test_mf_train_step_matches_jax_for_three_steps(setup):
             assert float(diff.norm() / whole.norm()) <= 1e-3
 
 
+def test_resumed_mf_step_matches_the_jax_step(setup, three_jax_steps,
+                                              tmp_path):
+    """The JAX state after the first of the 3 steps above, saved by the JAX
+    StateCheckpointer as its worker saves epoch 0 (orbax), restored by the
+    port's checkpointer: the port's next 2 steps equal the JAX second and
+    third steps within rtol 1e-4, the limit above; the third follows Adam's
+    update from the restored moments and count."""
+    s, K, _, _, params_np = setup
+    b, states, ref = three_jax_steps
+    ck = JaxCheckpointer(tmp_path)
+    ck.save(0, states[1], {"simple": 1.0})
+    ck.flush()
+    ck.close()
+    m = FuseNet((H, W), K, TL, block_num=BLOCKS, channels=CH)
+    state = TrainState.create(m, 1e-4, seed=0, device="cpu")
+    assert StateCheckpointer(tmp_path).restore(state)[1] == 0
+    assert state.step == 1
+    step = make_mf_train_step(m, make_loss_context(s, TL, device="cpu"),
+                              state)
+    tb = batch_to_torch(b, "cpu")
+    for i in (1, 2):
+        np.testing.assert_allclose(step(tb).numpy(), ref[i], rtol=1e-4,
+                                   atol=0)
+
+
 @pytest.mark.parametrize("accum_steps,flow_source", [(2, "file"),
                                                      (1, "pred")])
 def test_mf_train_step_variants_match_jax(setup, accum_steps, flow_source):
@@ -238,7 +275,7 @@ def test_mf_train_step_variants_match_jax(setup, accum_steps, flow_source):
     halved, components averaged) and flow_source = "pred" (the rigid flow
     of the primary disparity): rtol 1e-4 over 2 steps."""
     b = _batch(setup[0], accum_steps)
-    ref = _jax_steps(setup, b, accum_steps, flow_source, n_steps=2)
+    _, ref = _jax_steps(setup, b, accum_steps, flow_source, n_steps=2)
     _, out = _port_steps(setup, b, accum_steps, flow_source, n_steps=2)
     for i in range(2):
         np.testing.assert_allclose(out[i], ref[i], rtol=1e-4, atol=0)

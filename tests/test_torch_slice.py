@@ -113,8 +113,8 @@ def test_server_matches_jax_server(setup, tmp_path):
 
 def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     """Imports every module of the port and runs the tiny slice in a process
-    where the JAX stack, h5py, cv2, msgpack, matplotlib and the JAX package
-    cannot be imported: an eval step, the server, one train step, and the
+    where the JAX stack, h5py, cv2, msgpack, matplotlib, tensorstore,
+    zstandard and the JAX package cannot be imported: an eval step, the server, one train step, and the
     worker for one epoch on in-memory synthetic samples, with a resume; a
     wire cache written with numpy, read, and trained and tested from by the
     worker; a dataset directory written through data/hdf5.py, read back by
@@ -124,7 +124,9 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     plane-scene fixture generated, read back with host augmentation, one
     augment_frame with the shear, one StreamingEvalMetric update, and one
     textured sample rendered by create_syn_data at 64x56 (its renderer
-    built from native/render.cpp) and written through data/hdf5.py."""
+    built from native/render.cpp) and written through data/hdf5.py; and the
+    committed orbax fixture (the JAX package's DIS-MF state) restored into
+    a FuseNet, equal to its net_0000.params."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys, time
         from pathlib import Path
@@ -133,7 +135,8 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
             print(f"{time.perf_counter() - T0:7.1f} s  {phase}",
                   file=sys.stderr, flush=True)
         BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "h5py", "cv2",
-                   "matplotlib", "depthinspace_tpu")
+                   "matplotlib", "tensorstore", "zstandard",
+                   "depthinspace_tpu")
         for name in BLOCKED:
             sys.modules[name] = None
         import torch
@@ -312,6 +315,16 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         assert all(np.isfinite(v).all() for v in gen_frames.values())
         assert (gen_frames["disp"] > 0).mean() > 0.5
         mark("one rendered sample (create_syn_data)")
+        from depthinspace_tpu_torch.models import FuseNet
+        from depthinspace_tpu_torch.train.checkpoint import (
+            StateCheckpointer, load_net_params)
+        fx = Path("tests/data/orbax_fixture/multi_frame")
+        fm = FuseNet((64, 56), make_settings(64, 56).K, 4, block_num=1)
+        fst = TrainState.create(fm, device="cpu")
+        assert StateCheckpointer(fx).restore(fst)[1] == 0 and fst.step == 2
+        ref = load_net_params(fx / "net_0000.params", fm)
+        assert all(torch.equal(ref[k], v) for k, v in fm.state_dict().items())
+        mark("the JAX package's orbax state restored (zstd built from source)")
         assert not any(sys.modules.get(m) for m in BLOCKED)
         print("ok")
     """)
