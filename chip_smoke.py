@@ -176,6 +176,17 @@ path; every kernel but K5 must run on it):
                backward, finite losses, metrics.json holds epochs 0 and 1,
                the orbax epoch stays and the port's state/1/state.pt
                restores.
+23. farneback  presave_flow --provider farneback (ops/farneback.py, OpenCV's
+               Farnebäck flow in PyTorch; no TPU kernel) through main(...,
+               device=None) on 2 of phase 20's samples (512x432, 3 pyramid
+               levels): flow.hdf5's 12 pairs a sample held to the same
+               function on the CPU (mean |d| <= 1e-3 px, 99.9th percentile
+               <= 5e-2 px, the tests' tolerance against cv2); ms for a
+               sample's 12 pairs on the card; the EPE to the rigid flow
+               beside FlowNet's (output/flownet.msgpack) and zero flow's;
+               then one DIS-MF train step (train_val, --flow_source file,
+               bf16, bs 1) on those flow files: K1-K4 launched forward and
+               backward.
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -1197,6 +1208,7 @@ def main() -> None:
     def after_generation(data, out):
         data_parallel_phase(settings, dev, smi, model, images, data, out)
         orbax_resume_phase(dev, smi, data)
+        farneback_phase(dev, smi, data)
 
     generated_data_phase(dev, smi, then=after_generation)
 
@@ -2098,6 +2110,147 @@ def orbax_resume_phase(dev, smi, data: Path) -> None:
               and (exp / "state" / "1" / "state.pt").is_file(),
               "the port's state/1/state.pt does not restore")
     print(f"[orbax] phase 22 {time.perf_counter() - T0:.1f} s; {smi}")
+
+
+FB_SAMPLES = ("00000000", "00000001")
+# the card's flow against the CPU's: the tests' tolerance against cv2 (one
+# input gives one flow on a device; a 2x2 system near singular turns an ulp
+# of the filters' sums into a large step, so the tail is bounded, not 0)
+FB_MEAN_TOL, FB_P999_TOL = 1e-3, 5e-2
+FB_TIMED = 5
+
+
+def epe(a, b) -> float:
+    """Mean endpoint error of (..., 2, H, W) flows."""
+    return float(np.linalg.norm(a - b, axis=-3).mean())
+
+
+def farneback_phase(dev, smi, data: Path) -> None:
+    """Phase 23: presave_flow --provider farneback on the card on 2 of phase
+    20's samples, held to the CPU; its EPE beside FlowNet's and zero flow's;
+    one DIS-MF train step on its flow files."""
+    import shutil
+    import torch
+    import depthinspace_tpu_torch.config as config_mod
+    from depthinspace_tpu_torch import train_val
+    from depthinspace_tpu_torch.data import hdf5
+    from depthinspace_tpu_torch.models import flow_all_pairs
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.tools import presave_flow
+    from depthinspace_tpu_torch.tools.train_flow import load_flow_params
+    T0 = time.perf_counter()
+    def read(path):
+        with hdf5.File(path) as f:
+            return {k: np.array(f[k]) for k in f.keys()}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        fb = tmp / "data"
+        fb.mkdir()
+        shutil.copy(data / "settings.pkl", fb)
+        for name in FB_SAMPLES:
+            (fb / name).mkdir()
+            for f in ("frames.hdf5", "single_frame_disp.hdf5"):
+                shutil.copy(data / name / f, fb / name)
+        t0 = time.perf_counter()
+        presave_flow.main(["--provider", "farneback", "--data_dir", str(fb)])
+        torch.cuda.synchronize()
+        presave_s = time.perf_counter() - t0
+        fnet = load_flow_params(FLOWNET)[0].to(dev).eval()
+        stats = {"fb": [], "learned": [], "zero": []}
+        diffs = []
+        for name in FB_SAMPLES:
+            got = read(fb / name / "flow.hdf5")
+            rigid = read(data / name / "flow.hdf5")
+            frames = read(fb / name / "frames.hdf5")
+            amb = frames["ambient"][:, 0]
+            pairs = sorted(got)
+            check(pairs == sorted(rigid) and len(pairs) == 12
+                  and all(got[k].shape == (1, 2, H, W)
+                          and got[k].dtype == np.float32 for k in pairs),
+                  f"flow.hdf5 of {name}: {[(k, got[k].shape) for k in got]}")
+            src = [int(k[5]) for k in pairs]
+            dst = [int(k[6]) for k in pairs]
+            cpu = presave_flow.farneback_pairs(amb, src, dst, "cpu")
+            card = np.concatenate([got[k] for k in pairs])
+            diffs.append(np.abs(card - cpu).ravel())
+            gt = np.concatenate([rigid[k] for k in pairs])
+            with torch.inference_mode():
+                to = lambda a: torch.from_numpy(a[:, None]).to(dev)
+                im = frames["im"][:, 0] if fnet.in_channels == 2 else None
+                lf = flow_all_pairs(fnet, None if im is None else to(im),
+                                    to(amb))
+            lf = lf[:, :, 0].permute(0, 1, 4, 2, 3).cpu().numpy()
+            learned = np.stack([lf[i, j] for i, j in zip(src, dst)])
+            stats["fb"].append(epe(card, gt))
+            stats["learned"].append(epe(learned, gt))
+            stats["zero"].append(epe(0 * gt, gt))
+        d = np.concatenate(diffs)
+        mean_d, p999 = float(d.mean()), float(np.quantile(d, 0.999))
+        print(f"[farneback] presave_flow --provider farneback on "
+              f"{len(FB_SAMPLES)} samples {H}x{W} (3 pyramid levels): "
+              f"{presave_s:.2f} s with the HDF5 I/O; card vs CPU over "
+              f"{len(FB_SAMPLES) * 12} pairs: mean |d| {mean_d:.3g} px, "
+              f"99.9th percentile {p999:.3g}, max {d.max():.3g}, equal "
+              f"{np.mean(d == 0):.4f} of the values (tolerance "
+              f"{FB_MEAN_TOL:g} / {FB_P999_TOL:g})")
+        check(mean_d <= FB_MEAN_TOL and p999 <= FB_P999_TOL,
+              f"farneback card vs CPU: mean {mean_d}, 99.9th pct {p999}")
+        print(f"[farneback] EPE to the rigid flow (mean over the samples' 12 "
+              f"pairs): farneback {np.mean(stats['fb']):.3f} px, learned "
+              f"(FlowNet) {np.mean(stats['learned']):.3f} px, zero flow "
+              f"{np.mean(stats['zero']):.3f} px; per sample farneback "
+              f"{', '.join(f'{v:.3f}' for v in stats['fb'])}")
+        check(all(np.isfinite(v) for v in stats["fb"]), f"EPE {stats}")
+        # the device time of one sample's 12 pairs (frames on the card)
+        u8 = torch.from_numpy(presave_flow._to_u8(amb)).to(dev)
+        call = lambda: presave_flow.farneback(u8, src, dst)
+        call()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(FB_TIMED):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"[farneback] a sample's 12 pairs on the card: "
+              f"{np.median(times):.2f} ms (median of {FB_TIMED}, host clock "
+              f"to synchronize; {min(times):.2f}-{max(times):.2f}); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB since the start; {smi}")
+        # one DIS-MF train step on the farneback flow files
+        out = tmp / "out"
+        cfg = tmp / "config.json"
+        cfg.write_text(json.dumps({"OUTPUT_DIR": str(out),
+                                   "DATA_DIR": str(fb)}))
+        saved_cfg = config_mod.DEFAULT_CONFIG_PATH
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            config_mod.DEFAULT_CONFIG_PATH = str(cfg)
+            train_val.main(["--architecture", "multi_frame", "--cmd",
+                            "retrain", "--flow_source", "file",
+                            "--mf_dtype", "bfloat16", "--epochs", "1",
+                            "--train_batch_size", "1", "--max_train_iter",
+                            "1"], device=dev)
+            torch.cuda.synchronize()
+        finally:
+            config_mod.DEFAULT_CONFIG_PATH = saved_cfg
+            close_logs()
+        step_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launches.items() if v}
+        m = json.loads((out / "multi_frame" / "metrics.json").read_text())
+        loss = m["0"]["train"]["loss"]
+        print(f"[farneback] train_val multi_frame --flow_source file on the "
+              f"farneback flow.hdf5 (bf16, bs 1, 1 step, a 1-sample test): "
+              f"{step_s:.1f} s; train components "
+              f"{np.array2string(np.array(loss), precision=5)}; kernel "
+              f"launches {counts}")
+        check(len(loss) == 4 and np.isfinite(loss).all(),
+              f"MF metrics on farneback flow {m}")
+        for k in K1_K4:
+            check(counts.get(k, 0) > 0, f"{k} never launched in the MF step "
+                  "on farneback flow")
+    print(f"[farneback] phase 23 {time.perf_counter() - T0:.1f} s; {smi}")
 
 
 FLOWNET = ROOT / "output" / "flownet.msgpack"

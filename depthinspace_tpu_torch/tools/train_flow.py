@@ -16,10 +16,10 @@ The parameters are written as flax msgpack, the file both packages'
 ``presave_disp --flow_source net``, ``--flow_source net`` training and
 ``TrackDisparityServer`` use.
 
-Validation prints the mean endpoint error (EPE) of the learned flow and of
-zero flow (the no-skill floor) on held-out pairs. The JAX tool also prints
-OpenCV's Farneback EPE; this package uses no OpenCV, so that column is left
-out.
+Validation prints the mean endpoint error (EPE) of the learned flow on
+held-out pairs, and at the end beside it the EPE of OpenCV's Farnebäck flow
+(``presave_flow.farneback_flow``, in PyTorch on the training device) and of
+zero flow (the no-skill floor), as the JAX tool does.
 
 ``main(argv, device=None)`` trains on the card; ``device="cpu"`` only when
 asked for.
@@ -44,7 +44,7 @@ from ..models import (FlowNet, epe, flax_tree_from_flownet_state_dict,
                       flownet_state_dict_from_flax, init_flownet_,
                       multiscale_epe_loss)
 from ..utils import flax_msgpack
-from .presave_flow import rigid_flow
+from .presave_flow import farneback_flow, rigid_flow
 
 
 def _sample_dirs(data_root: Path):
@@ -222,8 +222,7 @@ def make_train_step(net: FlowNet, lr: float, steps: int):
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser(description=(
         "Train FlowNet on rigid-flow labels. Validation prints the learned "
-        "and the zero-flow EPE; the JAX tool's Farneback column needs "
-        "OpenCV, which this package does not use, and is left out."))
+        "EPE, and at the end the Farneback and the zero-flow EPE."))
     ap.add_argument("--data_dir", default=None)
     ap.add_argument("--out", default=None,
                     help="output params path (default "
@@ -250,9 +249,6 @@ def main(argv=None, device=None):
     ap.add_argument("--pool_size", type=int, default=1024,
                     help="training pairs drawn into the in-RAM pool")
     args = ap.parse_args(argv)
-    print("validation: learned and zero-flow EPE (the Farneback column of "
-          "the JAX tool needs OpenCV, which this package does not use)",
-          flush=True)
 
     dev = resolve_device(device)
     paths = load_paths() if not (args.data_dir and args.out) else {}
@@ -294,19 +290,25 @@ def main(argv=None, device=None):
 
     def validate(with_baselines=False) -> float:
         net.eval()
-        learned, zero = [], []
+        learned, farneback, zero = [], [], []
         with torch.inference_mode():
             for a, b, fl_gt in val_pairs:
                 to = lambda x: torch.from_numpy(x[None]).to(dev)
                 pred = net(to(a), to(b))[-1][0].cpu().numpy()
                 learned.append(float(np.mean(np.linalg.norm(pred - fl_gt,
                                                              axis=-1))))
-                zero.append(float(np.mean(np.linalg.norm(fl_gt, axis=-1))))
+                if with_baselines:
+                    fb = np.moveaxis(farneback_flow(a[..., 0], b[..., 0],
+                                                    dev), 0, -1)
+                    farneback.append(float(np.mean(
+                        np.linalg.norm(fb - fl_gt, axis=-1))))
+                    zero.append(float(np.mean(np.linalg.norm(fl_gt,
+                                                             axis=-1))))
         line = f"val EPE  learned {np.mean(learned):.3f}px"
         if with_baselines:
-            line += (f"  zero-flow {np.mean(zero):.3f}px  "
-                     f"({len(val_pairs)} held-out samples; farneback not "
-                     "computed: no OpenCV)")
+            line += (f"  farneback {np.mean(farneback):.3f}px"
+                     f"  zero-flow {np.mean(zero):.3f}px"
+                     f"  ({len(val_pairs)} held-out samples)")
         print(line, flush=True)
         return float(np.mean(learned))
 

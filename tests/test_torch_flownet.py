@@ -10,6 +10,7 @@ the forward 1e-3 px at every level (measured ~5e-7 px at 64x64 and 64x56);
 the train steps rtol 1e-4 on the losses, the weights within 1 % of an
 Adam step (float32 convolutions and their gradients summed in other
 orders)."""
+import re
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +25,7 @@ from depthinspace_tpu.data.cache import build_wire_cache as jax_build_wire_cache
 from depthinspace_tpu.data import generate_dataset
 from depthinspace_tpu.data import load_settings as jax_load_settings
 from depthinspace_tpu.models import flownet as jfn
+from depthinspace_tpu.tools import presave_flow as jax_presave_flow
 from depthinspace_tpu.tools import train_flow as jax_train_flow
 from depthinspace_tpu_torch.models import (FlowNet, correlation, epe,
                                            flax_tree_from_flownet_state_dict,
@@ -324,8 +326,10 @@ def test_train_flow_steps_match_jax(fixture_dir):
 
 def test_train_flow_main_writes_params_both_packages_read(fixture_dir,
                                                           tmp_path, capsys):
-    """``main`` on the fixture: steps, the validation line with the learned
-    and zero-flow EPE, and a msgpack both load_flow_params read."""
+    """``main`` on the fixture: steps, the validation line with the learned,
+    Farneback and zero-flow EPE (the Farneback EPE that of the JAX tool's
+    cv2 flow on the held-out pair), and a msgpack both load_flow_params
+    read."""
     out = tmp_path / "flownet.msgpack"
     train_flow.main(["--data_dir", str(fixture_dir), "--out", str(out),
                      "--steps", "3", "--batch_size", "2", "--crop", "32",
@@ -334,7 +338,17 @@ def test_train_flow_main_writes_params_both_packages_read(fixture_dir,
                      str(tmp_path / "pool.npz")], device="cpu")
     text = capsys.readouterr().out
     assert "step     2" in text and "zero-flow" in text
-    assert "farneback not computed" in text
+    m = re.search(r"learned [0-9.]+px  farneback ([0-9.]+)px  zero-flow "
+                  r"[0-9.]+px  \(1 held-out samples\)", text)
+    assert m, text
+    settings = jax_load_settings(fixture_dir / "settings.pkl")
+    a, b, gt = train_flow.load_pair(train_flow._sample_dirs(fixture_dir)[0],
+                                    settings.K, settings.baseline,
+                                    settings.focal_length,
+                                    np.random.RandomState(12345))
+    fb = np.moveaxis(jax_presave_flow.farneback_flow(a[..., 0], b[..., 0]),
+                     0, -1)
+    assert m.group(1) == f"{np.mean(np.linalg.norm(fb - gt, axis=-1)):.3f}"
     assert (tmp_path / "pool.npz").exists()
     net, ch = train_flow.load_flow_params(out)
     params, jch = jax_train_flow.load_flow_params(out, (32, 32))

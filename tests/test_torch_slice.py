@@ -124,7 +124,8 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
     plane-scene fixture generated, read back with host augmentation, one
     augment_frame with the shear, one StreamingEvalMetric update, and one
     textured sample rendered by create_syn_data at 64x56 (its renderer
-    built from native/render.cpp) and written through data/hdf5.py; and the
+    built from native/render.cpp) and written through data/hdf5.py, and
+    presave_flow's farneback_flow on two of its ambient frames; and the
     committed orbax fixture (the JAX package's DIS-MF state) restored into
     a FuseNet, equal to its net_0000.params."""
     code = textwrap.dedent("""
@@ -315,6 +316,11 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
         assert all(np.isfinite(v).all() for v in gen_frames.values())
         assert (gen_frames["disp"] > 0).mean() > 0.5
         mark("one rendered sample (create_syn_data)")
+        from depthinspace_tpu_torch.tools.presave_flow import farneback_flow
+        amb = gen_frames["ambient"][:, 0]
+        fb = farneback_flow(amb[0], amb[1], device="cpu")
+        assert fb.shape == (2, 64, 56) and np.isfinite(fb).all()
+        mark("farneback_flow on a pair of the rendered sample")
         from depthinspace_tpu_torch.models import FuseNet
         from depthinspace_tpu_torch.train.checkpoint import (
             StateCheckpointer, load_net_params)
