@@ -43,13 +43,17 @@ Phases, one or more lines each; any failure raises and exits nonzero:
 6. parity  the same evaluation at bs=1 on the card (kernels) and on the CPU
            (plain versions), TF32 off, same weights;
 7. train   the DIS-SF train step (Adam) at tl=4, bs=8, 512x432, f32, on one
-           synthetic batch with flow from the batch: ms/step, peak memory,
+           synthetic batch with flow from the batch, augmented on the
+           device as the workers run it (10 threefry draws a step):
+           ms/step, peak memory,
            the profiler's device time by kernel group, the loss falling within 30
            steps; the counters are zeroed before it and read after it: every
            kernel, forward and backward, must have run on that path. Then
            the step with accum_steps=2 and device augmentation;
-8. train parity  one train step at bs=1 on the card and on the CPU from the
-           same weights: components and every parameter's gradient;
+8. train parity  one augmented train step at bs=1 on the card and on the
+           CPU from the same weights and key (the same draws, csrc/
+           threefry.cu against utils/jrandom.py): components and every
+           parameter's gradient;
 9. worker  SingleFrameWorker on in-memory synthetic samples at 512x432: one
            epoch, a resume that starts at epoch 1, a retest of epoch 0;
            its debug images (train_000_0000.png, test_000_0000.png) and
@@ -68,7 +72,8 @@ path; every kernel but K5 must run on it):
 11. mf eval    the MF eval step at tl = 4, bs = 4, flow from the batch and
                from the primary disparity ("pred");
 12. mf train   the MF train step at 4 tracks x 4 frames, bf16, no remat,
-               Adam(1e-4): ms/step, peak memory, the profiler's device time
+               Adam(1e-4), augmented on the device (10 threefry draws a
+               step): ms/step, peak memory, the profiler's device time
                by kernel group, the loss falling, exactly 1/1 K1, 1/1 K2,
                3/1 K3 and 8/8 K4 launches (forward/backward) per step; then
                the step in f32 and with accum_steps = 2;
@@ -116,7 +121,8 @@ path; every kernel but K5 must run on it):
                objective at the GT disparity and at a constant 40 px (the
                geometric component at the GT far below, with_stats' mask
                shares, flow_consistency_sf); DIS-SF overfit on one batch
-               (bs 8, f32, Adam(1e-4), ~20 s): the photometric loss and
+               (bs 8, f32, Adam(1e-4), ~20 s, from the workers' init
+               key(42)): the photometric loss and
                the disparity error fall, K1-K3 forward and backward
                launched each step; train_val --data_type real
                --device_augment False (2 epochs, warmup 1, bs 4: 10 train
@@ -149,7 +155,10 @@ path; every kernel but K5 must run on it):
                limits, beside two world-1 steps' own difference, and every
                SF kernel launched on each rank; (b) the same for DIS-MF
                (FuseNet 4 x 32, bf16, 4 tracks, flow rejected everywhere:
-               no tie), the whole gradient within bf16's unit roundoff;
+               no tie), the whole gradient within bf16's unit roundoff
+               and each tensor's within 2e-2, or within twice what bf16
+               itself moves it (world 1's bf16 step against its f32
+               step);
                ms/step of both beside world 1 (gloo's host staging on one
                card, not NCCL across cards); (c) train_val retrain (1
                epoch, 3 steps) and retest under torchrun --standalone
@@ -187,6 +196,18 @@ path; every kernel but K5 must run on it):
                then one DIS-MF train step (train_val, --flow_source file,
                bf16, bs 1) on those flow files: K1-K4 launched forward and
                backward.
+24. threefry   (run after phase 3) csrc/threefry.cu, jax.random's
+               threefry-2x32 draws (no TPU kernel: XLA fuses them into the
+               JAX step), against its plain version utils/jrandom.py on the
+               card at the SF train step's draws (32 frames at 512x432):
+               the raw bits, f32 and bf16 uniforms and normals, and a
+               data-parallel rank's block of a global draw, each in ulps
+               (0 required); the card's DispNet init from key(42) against
+               the CPU's, tensor by tensor; the step's 28.3 M values timed
+               on the kernel, on the plain version, and torch.randn +
+               torch.rand of the same count (another generator, for
+               scale), beside the bound (the integer ALU pipe's
+               operations in the kernel's SASS).
 
 The last lines are the card's name and power limit, one JSON object with the
 kernels' results (launches on the MF path), and {"ok": true, "device":
@@ -223,6 +244,21 @@ SEED = 0
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 SFU_PER_S = 132 * 16 * 1.98e9
+# 32-bit integer operations/s of the integer ALU pipe: 64 INT32 lanes on
+# each of the 132 SMs (NVIDIA's H100 white paper) at the 1.98 GHz boost
+# clock
+INT32_OPS = 132 * 64 * 1.98e9
+# one threefry-2x32 value as nvcc compiles csrc/threefry.cu for sm_90a
+# (its SASS, scripts/chip_check_controls.py): 68 instructions, of which 54
+# issue on the integer ALU pipe (20 funnel shifts, 21 xors, 13 three-input
+# adds that fold the key injections) and 14 adds on the FMA pipe
+# (IMAD.IADD, 64 lanes an SM as well); the ALU pipe bounds it
+THREEFRY_INT_OPS = 20 + 21 + 13
+# float operations a value on top of the hash: a uniform's subtract, FMA
+# (2) and max; a normal's uniform, erf_inv (log1p's 12 FMAs and division
+# below sqrt(2) - 1, else Cephes' log with 9 FMAs; 8 FMAs of Giles'
+# polynomial; ~8 adds and multiplies) and the sqrt(2) product
+THREEFRY_FLOPS = {"uniform": 4, "normal": 4 + 2 * 12 + 1 + 2 * 8 + 8 + 1}
 
 # Tolerances of the kernels against their plain versions on the card.
 TOL = {
@@ -247,6 +283,8 @@ TOL = {
     # K5 runs K3's kernels
     "warp2d_v1_fwd": 0.0,
     "warp2d_v1_bwd": 1e-5,
+    # the plain version's roundings, one for one (FMAs where it fuses)
+    "threefry": 0.0,
 }
 BF16_RTOL = 2.0 ** -6
 REPLACES = {
@@ -260,6 +298,8 @@ REPLACES = {
     "warp2d_pairs_bwd": "depthinspace_tpu/ops/pallas/warp2d_pairs.py:255",
     "warp2d_v1_fwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:407",
     "warp2d_v1_bwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:446",
+    # no pl.pallas_call: the jax.random draws XLA fuses into the JAX step
+    "threefry": "depthinspace_tpu/train/objective.py:218",
 }
 SOURCE = {
     "census_sad_fwd": "depthinspace_tpu_torch/csrc/census_sad.cu",
@@ -272,6 +312,7 @@ SOURCE = {
     "warp2d_pairs_bwd": "depthinspace_tpu_torch/csrc/warp2d_pairs.cu",
     "warp2d_v1_fwd": "depthinspace_tpu_torch/csrc/warp2d.cu",
     "warp2d_v1_bwd": "depthinspace_tpu_torch/csrc/warp2d.cu",
+    "threefry": "depthinspace_tpu_torch/csrc/threefry.cu",
 }
 # kernel launches per DIS-SF train step (tl=4: 4 photometric scales; one
 # geometric loss with a C=1 and a C=3 flow warp, only the first needing
@@ -285,7 +326,25 @@ PER_MF_STEP = {"census_sad_fwd": 1, "xwarp_fwd": 1, "warp2d_fwd": 3,
                "warp2d_pairs_fwd": 8, "warp2d_v1_fwd": 0,
                "census_sad_bwd": 1, "xwarp_bwd": 1, "warp2d_bwd": 1,
                "warp2d_pairs_bwd": 8, "warp2d_v1_bwd": 0}
+# threefry launches per train step augmented on the device (phases 7 and
+# 12, as the workers train): 7 (n, 1, 1) uniforms, 2 normal planes, the
+# (2, n, H, W) salt-and-pepper uniforms
+THREEFRY_PER_STEP = 10
 MF_TRACKS = 4
+
+
+def _jkey(seed: int):
+    """The port's threefry key for ``seed`` (``jax.random.key(seed)``)."""
+    from depthinspace_tpu_torch.utils.jrandom import key
+    return key(seed)
+
+
+def _dispnet(key):
+    """DispNet (max_disp 128) with flax's init from ``key``, drawn on the
+    card (the CPU's weights bit for bit: phase 24) and returned on the
+    CPU."""
+    from depthinspace_tpu_torch.models import DispNet, init_dispnet_
+    return init_dispnet_(DispNet(max_disp=128.0).to("cuda"), key).cpu()
 
 
 def check(cond, what: str) -> None:
@@ -955,6 +1014,8 @@ def main() -> None:
     del es_t, ta_t, g_t, pat_t, grid_t
     torch.cuda.empty_cache()
 
+    threefry_phase(dev, smi, results)
+
     # -- 4. serve ----------------------------------------------------------
     from depthinspace_tpu_torch.models import DispNet, init_dispnet_
     from depthinspace_tpu_torch.serve import DisparityServer
@@ -962,8 +1023,7 @@ def main() -> None:
                                               make_sf_eval_step,
                                               make_sf_train_step)
 
-    model = init_dispnet_(DispNet(max_disp=128.0),
-                          torch.Generator().manual_seed(SEED))
+    model = _dispnet(_jkey(SEED))
     cpu_model = copy.deepcopy(model).eval()
     kernels.reset_launches()                     # the eval path starts here
     server = DisparityServer(model, imsize=(H, W), max_batch=8, device=dev)
@@ -1055,9 +1115,10 @@ def main() -> None:
     tbatch = batch_to_torch(tb_np, dev)
     print(f"[train] synthetic batch tl={TL} bs={TRAIN_BS} in "
           f"{time.perf_counter() - t0:.1f} s")
-    train_model = init_dispnet_(DispNet(max_disp=128.0),
-                                torch.Generator().manual_seed(SEED + 3))
-    ctx_t = make_loss_context(settings, TL, device=dev)
+    train_model = _dispnet(_jkey(SEED + 3))
+    # device augmentation on, as the workers run the step (its 10 draws a
+    # step from the state's key: csrc/threefry.cu)
+    ctx_t = make_loss_context(settings, TL, device=dev, augment=True)
     state = TrainState.create(train_model, 1e-4, seed=SEED, device=dev)
     train_step = make_sf_train_step(train_model, ctx_t, state)
     kernels.reset_launches()                    # the train path starts here
@@ -1087,7 +1148,8 @@ def main() -> None:
     check(totals[-1] < totals[0], "the train loss did not fall in 30 steps")
     print(f"[train] kernel launches on the train path over {steps} steps: "
           f"{counts_t}")
-    for name, per in PER_TRAIN_STEP.items():
+    for name, per in {**PER_TRAIN_STEP,
+                      "threefry": THREEFRY_PER_STEP}.items():
         check(counts_t[name] == per * steps,
               f"{name}: {counts_t[name]} launches, expected {per} x {steps}")
 
@@ -1115,8 +1177,8 @@ def main() -> None:
         m = copy.deepcopy(cpu_model)
         st = TrainState.create(m, 1e-4, seed=SEED, device=d)
         t0 = time.perf_counter()
-        comps = make_sf_train_step(m, make_loss_context(settings, TL,
-                                                        device=d), st)(
+        comps = make_sf_train_step(m, make_loss_context(
+            settings, TL, device=d, augment=True), st)(
             batch_to_torch(b1_np, d)).cpu().numpy()
         print(f"[train parity] {d.type} step {time.perf_counter() - t0:.1f} s")
         return comps, {k: p.grad.detach().cpu().double()
@@ -1516,13 +1578,70 @@ PLANE_BASELINE = 0.25
 # half of the first
 GEO_RATIO_MIN = 39.0
 OVERFIT_S = 20.0                          # the overfit's budget, seconds
-# the overfit must take the photometric loss and the mean |disp - GT| below
-# these shares of their start: half the drops measured on the card (85
-# steps: 0.988x and 0.981x). The seeded init predicts ~6 px (the heads'
-# sigmoid(x - 3) * 128) against a GT of 20-80 px, and Adam(1e-4) moves
-# each weight at most 1e-4 a step, so 20 s of steps close little of it
-OVERFIT_PH_MAX = 0.994
-OVERFIT_DIST_MAX = 0.990
+# its Adam rate, and the shares of their start the photometric loss and
+# the mean |disp - GT| must fall below: half the drops measured on the card.
+# From the workers' init (flax's, jax.random.key(42)), whose heads predict
+# ~6 px against a GT of 20-80 px, Adam(1e-4) moves them to 0.992x and
+# 0.995x in 81-85 steps, in every run; with K2's backward returning zeros
+# (no photometric gradient) the photometric loss rises, 1.003x, and fails
+# (scripts/chip_check_controls.py). The geometric term with the file's
+# flow still teaches the disparity without K2 (0.927x), so the photometric
+# limit is the one that catches a broken photometric gradient. A higher
+# rate does not learn more surely: Adam(3e-3) ended at 0.930x, 0.999x,
+# 0.996x and 1.001x in four runs, and as low with K2 zeroed
+OVERFIT_LR = 1e-4
+OVERFIT_PH_MAX = 0.996
+OVERFIT_DIST_MAX = 0.9975
+
+
+def plane_scenes(data: Path):
+    """Phase 19's PLANE_N plane-scene samples written to ``data``:
+    (settings, the first TRAIN_BS samples as a wire-encoded batch, their
+    GT disparity (tl, bs, H, W) in px)."""
+    from depthinspace_tpu_torch.data import (TrackDataset, collate,
+                                             decode_batch_np, encode_batch,
+                                             generate_dataset, load_settings)
+    generate_dataset(data, n_samples=PLANE_N, imsize=(H, W), seed=SEED + 90,
+                     focal=PLANE_FOCAL, baseline=PLANE_BASELINE,
+                     write_sgm=True)
+    settings = load_settings(data / "settings.pkl")
+    paths = sorted(str(p) for p in data.glob("0*"))
+    ds = TrackDataset(settings, paths[:TRAIN_BS], train=False,
+                      load_flow=True)
+    enc = encode_batch(collate([ds[i] for i in range(TRAIN_BS)]))
+    return settings, enc, decode_batch_np(enc).disp_gt
+
+
+def overfit(model, ctx, batch, gt, dev, lr: float, seconds: float):
+    """DIS-SF ``model`` trained on the one ``batch`` (Adam(lr)) for
+    ``seconds``: (steps, seconds, (photometric, mean |disp - GT| in px)
+    before and after, the kernel launches of the steps)."""
+    import torch
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.train import (TrainState, make_sf_eval_step,
+                                              make_sf_train_step)
+    state = TrainState.create(model, lr, seed=SEED, device=dev)
+    step = make_sf_train_step(model, ctx, state)
+    ev = make_sf_eval_step(model, ctx)
+
+    def accuracy():
+        disp_u16, comps = ev(batch)
+        es = disp_u16.cpu().numpy().astype(np.float32) / 256.0
+        return float(comps[0]), float(np.mean(np.abs(es - gt)[gt > 0]))
+
+    before = accuracy()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while time.perf_counter() - t0 < seconds:
+        comps = step(batch)
+        steps += 1
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    check(np.isfinite(comps.cpu().numpy()).all(), "overfit components")
+    return steps, fit_s, before, accuracy(), counts
 
 
 def plane_scene_phase(dev, smi) -> None:
@@ -1530,41 +1649,27 @@ def plane_scene_phase(dev, smi) -> None:
     (data/fixture.py) at 512x432 with SGM disparities; the SF objective at
     the GT disparity and at a constant 40 px (the geometric component, its
     masks' accept shares, one pair's flow_consistency_sf); DIS-SF overfit
-    on one fixed batch (bs 8, f32, Adam(1e-4)) for OVERFIT_S seconds, the
-    photometric loss and the disparity error falling; then train_val
+    on one fixed batch (bs 8, f32, Adam(OVERFIT_LR)) for OVERFIT_S seconds,
+    the photometric loss and the disparity error falling; then train_val
     --data_type real on the dataset, 2 epochs with the SGM warmup gate,
     augmented on the host and, on the same split, on the device, and two
     retests (--eval_metrics exact and device) that agree."""
     import torch
     import depthinspace_tpu_torch.config as config_mod
     from depthinspace_tpu_torch import train_val
-    from depthinspace_tpu_torch.data import (TrackDataset, batch_to_torch,
-                                             collate, decode_batch,
-                                             decode_batch_np, encode_batch,
-                                             generate_dataset, load_settings)
+    from depthinspace_tpu_torch.data import batch_to_torch, decode_batch
     from depthinspace_tpu_torch.losses import (flow_consistency_sf,
                                                geometric_loss_sf)
-    from depthinspace_tpu_torch.models import DispNet, init_dispnet_
     from depthinspace_tpu_torch.ops import disp_to_depth, kernels
-    from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
-                                              make_sf_eval_step,
-                                              make_sf_train_step)
+    from depthinspace_tpu_torch.train import make_loss_context
     from depthinspace_tpu_torch.train.objective import sf_losses
     T0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         # -- 19a. the dataset ----------------------------------------------
         data = Path(tmp) / "data"
         t0 = time.perf_counter()
-        generate_dataset(data, n_samples=PLANE_N, imsize=(H, W),
-                         seed=SEED + 90, focal=PLANE_FOCAL,
-                         baseline=PLANE_BASELINE, write_sgm=True)
+        settings, enc, gt = plane_scenes(data)
         gen_s = (time.perf_counter() - t0) / PLANE_N
-        settings = load_settings(data / "settings.pkl")
-        paths = sorted(str(p) for p in data.glob("0*"))
-        ds = TrackDataset(settings, paths[:TRAIN_BS], train=False,
-                          load_flow=True)
-        enc = encode_batch(collate([ds[i] for i in range(TRAIN_BS)]))
-        gt = decode_batch_np(enc).disp_gt
         print(f"[plane] {PLANE_N} plane-scene samples {H}x{W} (focal "
               f"{PLANE_FOCAL} px, baseline {PLANE_BASELINE} m, SGM "
               f"disparities): {gen_s:.2f} s a sample on the host; the first "
@@ -1611,33 +1716,13 @@ def plane_scene_phase(dev, smi) -> None:
               "2 a geometric loss, with_stats call and pair, at 2 points")
 
         # -- 19c. DIS-SF overfits one batch ---------------------------------
-        model = init_dispnet_(DispNet(max_disp=128.0),
-                              torch.Generator().manual_seed(SEED + 91))
-        state = TrainState.create(model, 1e-4, seed=SEED, device=dev)
-        step = make_sf_train_step(model, ctx, state)
-        ev = make_sf_eval_step(model, ctx)
-
-        def accuracy():
-            disp_u16, comps = ev(batch)
-            es = disp_u16.cpu().numpy().astype(np.float32) / 256.0
-            return float(np.mean(np.abs(es - gt)[gt > 0])), float(comps[0])
-
-        dist0, ph0 = accuracy()
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps = 0
-        while time.perf_counter() - t0 < OVERFIT_S:
-            comps = step(batch)
-            steps += 1
-            torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        counts = dict(kernels.launches)
-        check(np.isfinite(comps.cpu().numpy()).all(), "overfit components")
-        dist1, ph1 = accuracy()
+        # from the workers' init (RunConfig.seed 42: flax's init from
+        # jax.random.key(42), the JAX package's)
+        steps, fit_s, (ph0, dist0), (ph1, dist1), counts = overfit(
+            _dispnet(_jkey(42)), ctx, batch, gt, dev, OVERFIT_LR, OVERFIT_S)
         print(f"[plane] DIS-SF overfit, one batch (bs {TRAIN_BS}, tl {TL}, "
-              f"f32, TF32 off, Adam(1e-4), flow.hdf5): {steps} steps in "
-              f"{fit_s:.1f} s ({fit_s / steps * 1e3:.1f} ms/step); "
+              f"f32, TF32 off, Adam({OVERFIT_LR:g}), flow.hdf5): {steps} "
+              f"steps in {fit_s:.1f} s ({fit_s / steps * 1e3:.1f} ms/step); "
               f"photometric {ph0:.5f} -> {ph1:.5f} ({ph1 / ph0:.3f}x, below "
               f"{OVERFIT_PH_MAX}x asked); mean |disp - GT| {dist0:.3f} -> "
               f"{dist1:.3f} px ({dist1 / dist0:.3f}x, below "
@@ -1651,7 +1736,7 @@ def plane_scene_phase(dev, smi) -> None:
               f"overfit: photometric {ph0} -> {ph1}")
         check(dist1 < OVERFIT_DIST_MAX * dist0,
               f"overfit: disparity error {dist0} -> {dist1}")
-        del model, state, step, ev, batch, bt
+        del batch, bt
         torch.cuda.empty_cache()
 
         # -- 19d. train_val --data_type real --------------------------------
@@ -2363,7 +2448,7 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
     # -- 18c. TrackDisparityServer without flow ----------------------------
     mf16 = init_fusenet_(FuseNet((H, W), settings.K, TL,
                                  compute_dtype=torch.bfloat16),
-                         torch.Generator().manual_seed(SEED + 4))
+                         _jkey(SEED + 4))
     srv = TrackDisparityServer(sf_model, mf16, net, imsize=(H, W),
                                K=settings.K, max_tracks=MF_TRACKS, device=dev)
     mv = lambda v: np.ascontiguousarray(np.moveaxis(v, 1, 0))
@@ -2439,12 +2524,12 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
                                      ("multi_frame", mf_np, PER_MF_STEP)):
         if arch == "single_frame":
             from depthinspace_tpu_torch.models import DispNet, init_dispnet_
-            m = init_dispnet_(DispNet(), torch.Generator().manual_seed(SEED))
+            m = _dispnet(_jkey(SEED))
             make = make_sf_train_step
         else:
             m = init_fusenet_(FuseNet((H, W), settings.K, TL,
                                       compute_dtype=torch.bfloat16),
-                              torch.Generator().manual_seed(SEED + 5))
+                              _jkey(SEED + 5))
             make = make_mf_train_step
         state = TrainState.create(m, 1e-4, seed=SEED, device=dev)
         step = make(m, ctx, state)
@@ -2559,6 +2644,126 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
     print(f"[flow] phase 18 {time.perf_counter() - T0:.1f} s; {smi}")
 
 
+def _ulps(a, b) -> int:
+    """The largest distance in units in the last place between two float32
+    or bfloat16 tensors (as ordered integers)."""
+    import torch
+    itype = torch.int32 if a.dtype == torch.float32 else torch.int16
+
+    def ordered(x):
+        i = x.contiguous().view(itype).to(torch.int64)
+        return torch.where(i < 0, -(i & (2 ** (8 * x.element_size() - 1) - 1)),
+                           i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def threefry_phase(dev, smi, results) -> None:
+    """Phase 24 (run after phase 3): csrc/threefry.cu against its plain
+    version (utils/jrandom.py) on the card, at the SF train step's draws
+    (tl = 4, bs = 8, 512x432: 32 frames); the card's DispNet init from
+    key(42) against the CPU's; the step's draws timed."""
+    import torch
+    from depthinspace_tpu_torch.models import DispNet, init_dispnet_
+    from depthinspace_tpu_torch.ops import kernels
+    from depthinspace_tpu_torch.utils import jrandom
+
+    n = TL * TRAIN_BS
+    plane, pair = (n, H, W), (2, n, H, W)
+    k = jrandom.key(SEED + 24)
+    count = n * H * W
+    kb = kernels.threefry_draw(k, plane, "bits", device=dev, run=count)
+    pb = jrandom.bits(k, plane, device=dev)
+    check(torch.equal(kb.to(torch.int64) & 0xFFFFFFFF, pb),
+          "threefry bits differ from the plain version's")
+    worst, err = 0, 0.0
+    cases = [("uniform", torch.float32, 0.0, 1.0, pair),
+             ("uniform", torch.float32, 0.2, 0.5, (n, 1, 1)),
+             ("normal", torch.float32, 0.0, 1.0, plane),
+             ("normal", torch.bfloat16, 0.0, 1.0, plane),
+             ("uniform", torch.bfloat16, 0.0, 3.0, plane)]
+    for transform, dtype, lo, hi, shape in cases:
+        got = jrandom.draw(k, shape, transform, dtype, lo, hi, device=dev)
+        plain = (jrandom.uniform(k, shape, dtype, lo, hi, device=dev)
+                 if transform == "uniform"
+                 else jrandom.normal(k, shape, dtype, device=dev))
+        u = _ulps(got, plain)
+        worst = max(worst, u)
+        err = max(err, float((got.float() - plain.float()).abs().max()))
+        print(f"[threefry] {transform} {str(dtype)[6:]} {tuple(shape)}: "
+              f"{u} ulp from the plain version")
+    # a data-parallel rank's share: rank 1 of 2 (bs 4 of the global 8)
+    hw = H * W
+    share = (TL, TRAIN_BS // 2, H, W)
+    got = jrandom.draw(k, share, "normal", device=dev,
+                       run=TRAIN_BS // 2 * hw, stride=TRAIN_BS * hw,
+                       offset=TRAIN_BS // 2 * hw)
+    whole = jrandom.normal(k, (TL, TRAIN_BS, H, W), device=dev)
+    block = whole[:, TRAIN_BS // 2:].contiguous()
+    u = _ulps(got, block)
+    worst = max(worst, u)
+    err = max(err, float((got - block).abs().max()))
+    print(f"[threefry] rank 1 of 2's normals {share}: {u} ulp from the "
+          "global draw's block")
+    check(worst == 0, f"threefry floats differ from the plain version by "
+          f"{worst} ulp")
+
+    # the SF step's draws: 2 normal planes and the (2, n, H, W) uniforms
+    def step_draws(draw):
+        return [draw(k, plane, "normal"), draw(k, plane, "normal"),
+                draw(k, pair, "uniform")]
+
+    def by_kernel(kk, shape, transform):
+        return jrandom.draw(kk, shape, transform, device=dev)
+
+    def by_plain(kk, shape, transform):
+        return (jrandom.normal(kk, shape, device=dev) if transform == "normal"
+                else jrandom.uniform(kk, shape, device=dev))
+
+    ms = cuda_ms(lambda: step_draws(by_kernel))
+    plain_ms = cuda_ms(lambda: step_draws(by_plain), reps=5, warmup=1)
+    randn_ms = cuda_ms(lambda: (torch.randn(pair, device=dev),
+                                torch.rand(pair, device=dev)))
+    values = 4 * count
+    int_ops = values * THREEFRY_INT_OPS
+    flops = 2 * count * (THREEFRY_FLOPS["normal"]) \
+        + 2 * count * THREEFRY_FLOPS["uniform"]
+    t = {"bytes": values * 4 / HBM_BPS, "operations": max(
+        int_ops / INT32_OPS, flops / F32_FLOPS)}
+    by = max(t, key=t.get)
+    bound = (t[by] * 1e3, by)
+    print(f"[threefry] the SF step's draws ({values / 1e6:.1f} M values: 2 "
+          f"normal planes, 2 uniform planes of {plane}): kernel {ms:.4f} ms "
+          f"(3 launches), plain version {plain_ms:.2f} ms, torch.randn + "
+          f"torch.rand of the same count (another generator, for scale) "
+          f"{randn_ms:.4f} ms; bound {bound[0]:.4f} ms ({by}: "
+          f"{int_ops / 1e9:.2f} G integer ALU ops at {INT32_OPS / 1e12:.1f} "
+          f"T/s, {values * 4 / 1e6:.0f} MB written; {bound[0] / ms:.0%} of "
+          f"it); "
+          f"{smi}")
+    results["threefry"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=None, bound_ms=bound[0],
+                               bound_by=by, randn_ms=randn_ms)
+
+    # the card's init (plain ops on the card) against the CPU's
+    t0 = time.perf_counter()
+    on_card = init_dispnet_(DispNet(max_disp=128.0).to(dev),
+                            jrandom.key(42))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = init_dispnet_(DispNet(max_disp=128.0), jrandom.key(42))
+    cpu_s = time.perf_counter() - t0
+    sd_cpu = on_cpu.state_dict()
+    unequal = [name for name, v in on_card.state_dict().items()
+               if not torch.equal(v.cpu(), sd_cpu[name])]
+    print(f"[threefry] DispNet init from key(42) on the card ({card_s:.2f} "
+          f"s) and on the CPU ({cpu_s:.2f} s): {len(sd_cpu) - len(unequal)}"
+          f" of {len(sd_cpu)} tensors bit for bit equal")
+    check(not unequal, f"card and CPU inits differ: {unequal[:4]}")
+    del on_card, on_cpu, kb, pb, whole
+    torch.cuda.empty_cache()
+
+
 def drift_phase(settings, dev, sf_np, mf_np) -> None:
     """Phase 16: the SF train step (tl = 4, bs = 8, f32) and the MF train
     step (4 tracks, bf16) run 5 times from the same weights, optimizer
@@ -2575,12 +2780,11 @@ def drift_phase(settings, dev, sf_np, mf_np) -> None:
     ctx = make_loss_context(settings, TL, device=dev)
     cases = (
         ("SF train step, tl=4 bs=8 f32", sf_np, make_sf_train_step,
-         lambda: init_dispnet_(DispNet(max_disp=128.0),
-                               torch.Generator().manual_seed(SEED + 3))),
+         lambda: _dispnet(_jkey(SEED + 3))),
         ("MF train step, 4 tracks bf16", mf_np, make_mf_train_step,
          lambda: init_fusenet_(FuseNet((H, W), settings.K, TL,
                                        compute_dtype=torch.bfloat16),
-                               torch.Generator().manual_seed(SEED + 5))))
+                               _jkey(SEED + 5))))
     for label, batch_np, make_step, make_model in cases:
         batch = batch_to_torch(batch_np, dev)
         runs = []
@@ -2692,7 +2896,7 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     def fusenet(dtype, seed):
         return init_fusenet_(FuseNet((H, W), settings.K, TL,
                                      compute_dtype=dtype),
-                             torch.Generator().manual_seed(seed))
+                             _jkey(seed))
 
     def delta(before):
         return {k: kernels.launches[k] - before[k] for k in before}
@@ -2760,7 +2964,7 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     # -- 12. mf train -----------------------------------------------------
     mf_train = fusenet(torch.bfloat16, SEED + 5)
     start_sd = copy.deepcopy(mf_train.state_dict())
-    ctx_t = make_loss_context(settings, TL, device=dev)
+    ctx_t = make_loss_context(settings, TL, device=dev, augment=True)
     state = TrainState.create(mf_train, 1e-4, seed=SEED, device=dev)
     train_step = make_mf_train_step(mf_train, ctx_t, state)
     kernels.reset_launches()
@@ -2791,7 +2995,7 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
           f"{np.array2string(comps_np, precision=5)}")
     check(totals[-1] < totals[0], "the MF train loss did not fall")
     print(f"[mf train] launches over {steps} steps: {counts_t}")
-    for name, per in PER_MF_STEP.items():
+    for name, per in {**PER_MF_STEP, "threefry": THREEFRY_PER_STEP}.items():
         check(counts_t[name] == per * steps,
               f"{name}: {counts_t[name]} launches in the MF train phase, "
               f"expected {per} x {steps}")
@@ -2929,7 +3133,7 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
               f"relative; {time.perf_counter() - t0:.1f} s")
         check(rel_r.max() <= 1e-4, f"MF retest of epoch 0 differs: {rel_r}")
     print(f"[mf] kernel launches on the MF path (phases 10-12): {path}")
-    for name in PER_MF_STEP:
+    for name in (*PER_MF_STEP, "threefry"):
         if name.startswith("warp2d_v1"):
             continue
         check(path[name] > 0, f"{name} never launched on the MF path")
@@ -2947,6 +3151,17 @@ DP_TIMED_STEPS = 3
 # roundoff (on the CPU, without atomics: 1.93e-3 for the MF case)
 DP_COMP_RTOL, DP_GRAD_TENSOR = 1e-4, 2e-2
 DP_GRAD_ALL = {"float32": 1e-3, "bfloat16": 2.0 ** -8}
+# ... unless bf16 itself moves the gradient further: two bf16 steps of one
+# gradient (2 ranks, world 1) may each lie as far from the f32 gradient as
+# world 1's bf16 step does, so twice that distance, as a whole and tensor
+# by tensor, bounds their difference too. The bf16 noise depends on the
+# init: from torch's init of seed 5 the whole 2-rank difference was
+# 2.44e-3; from flax's init of key(5) 6.4e-3-6.7e-3, and on one tensor as
+# far as world 1's own distance from f32 there. Planted in the ranks
+# (scripts/chip_check_controls.py), a skipped gradient all-reduce reads
+# 0.52 over all in MF bf16 (limit 3.9e-2) and 0.51 in SF f32; ratios over
+# each rank's own denominators read 2.6e-3 in SF f32 (limit 1e-3) and
+# change nothing in MF, whose two ranks have equal denominators
 
 
 def start_children(cmds, env=None) -> list:
@@ -3006,13 +3221,12 @@ def dp_cases(settings):
     return (
         ("SF", make_sf_train_step,
          make_track_batch(settings, tl=TL, bs=TRAIN_BS, seed=SEED + 2),
-         lambda: init_dispnet_(DispNet(max_disp=128.0),
-                               torch.Generator().manual_seed(SEED + 3)),
+         lambda: _dispnet(_jkey(SEED + 3)),
          PER_TRAIN_STEP, "float32"),
         ("MF", make_mf_train_step, mf._replace(flow=flow),
-         lambda: init_fusenet_(FuseNet((H, W), settings.K, TL,
-                                       compute_dtype=torch.bfloat16),
-                               torch.Generator().manual_seed(SEED + 5)),
+         lambda dtype=torch.bfloat16: init_fusenet_(
+             FuseNet((H, W), settings.K, TL, compute_dtype=dtype),
+             _jkey(SEED + 5)),
          PER_MF_STEP, "bfloat16"))
 
 
@@ -3095,6 +3309,28 @@ def dp_ranks(tmp: Path, spec: dict, world: int = 2) -> list:
     return run_children(cmds, f"phase 21 {spec['mode']}")
 
 
+def dp_grad_limits(settings, case, ref: dict, dev) -> tuple[float, dict]:
+    """The limits of a 2-rank step's gradients against world 1's step
+    ``ref`` of ``case``: (the whole gradient's relative L2, each tensor's).
+    In bf16 each is at least twice world 1's own bf16-to-f32 distance from
+    the same init, which this measures."""
+    import torch
+    whole = DP_GRAD_ALL[case[5]]
+    tensor = {k: DP_GRAD_TENSOR for k in ref["grads"]}
+    if case[5] == "bfloat16":
+        f32 = dp_step(settings, case[:3] + (
+            lambda: case[3](torch.float32),) + case[4:], dev, None, 0, 1)
+        n_all, n_t = grad_diff(ref["grads"], f32["grads"])
+        whole = max(whole, 2 * n_all)
+        tensor = {k: max(v, 2 * n_t[k]) for k, v in tensor.items()}
+        top = max(n_t, key=n_t.get)
+        print(f"[dp] {case[0]} world 1 in bf16 against f32 from the same "
+              f"init: gradients relative L2 {n_all:.3g} over all, at most "
+              f"{n_t[top]:.3g} ({top}): twice them bound the 2-rank "
+              "difference")
+    return whole, tensor
+
+
 def timed(fn) -> float:
     """Seconds of fn()."""
     t0 = time.perf_counter()
@@ -3125,8 +3361,7 @@ def data_parallel_phase(settings, dev, smi, sf_model, images, data: Path,
                  for r in range(2)]
         two_s = time.perf_counter() - t0
         for i, case in enumerate(dp_cases(settings)):
-            label, per_step, grad_all = case[0], case[4], DP_GRAD_ALL[
-                case[5]]
+            label, per_step = case[0], case[4]
             t0 = time.perf_counter()
             ref, again = (dp_step(settings, case, dev, None, 0, 1)
                           for _ in range(2))
@@ -3135,7 +3370,8 @@ def data_parallel_phase(settings, dev, smi, sf_model, images, data: Path,
                 np.abs(ref["comps"]), 1e-30)
             g_all, g_t = grad_diff(r0["grads"], ref["grads"])
             s_all, s_t = grad_diff(again["grads"], ref["grads"])
-            worst = max(g_t, key=g_t.get)
+            grad_all, tensor_lim = dp_grad_limits(settings, case, ref, dev)
+            worst = max(g_t, key=lambda k: g_t[k] / tensor_lim[k])
             print(f"[dp] {label} step, 2 gloo ranks on cuda:0 against world "
                   f"1: components {np.array2string(r0['comps'], precision=6)}"
                   f" vs {np.array2string(ref['comps'], precision=6)} "
@@ -3161,7 +3397,7 @@ def data_parallel_phase(settings, dev, smi, sf_model, images, data: Path,
                   f"{label}: the ranks report other components")
             check(rel_c.max() <= DP_COMP_RTOL,
                   f"{label}: 2-rank components differ from world 1: {rel_c}")
-            check(g_all <= grad_all and g_t[worst] <= DP_GRAD_TENSOR,
+            check(g_all <= grad_all and g_t[worst] <= tensor_lim[worst],
                   f"{label}: 2-rank gradients differ from world 1: all "
                   f"{g_all}, {worst} {g_t[worst]}")
             for r in (r0, r1):

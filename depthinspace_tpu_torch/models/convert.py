@@ -42,18 +42,23 @@ import torch
 from .flownet import FlowNet
 
 
+def _f32(leaf) -> torch.Tensor:
+    """A leaf (a numpy array, or a tensor on any device) as float32."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.float()
+    return torch.tensor(np.asarray(leaf, np.float32))
+
+
 def _conv(kernel) -> torch.Tensor:
-    return torch.from_numpy(
-        np.ascontiguousarray(np.asarray(kernel, np.float32).transpose(3, 2, 0, 1)))
+    return _f32(kernel).permute(3, 2, 0, 1).contiguous()
 
 
 def _conv_transpose(kernel) -> torch.Tensor:
-    k = np.asarray(kernel, np.float32)[::-1, ::-1]
-    return torch.from_numpy(np.ascontiguousarray(k.transpose(2, 3, 0, 1)))
+    return _f32(kernel).flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
 
 def _bias(b) -> torch.Tensor:
-    return torch.from_numpy(np.array(b, np.float32))
+    return _f32(b)
 
 
 def _count_leaves(tree) -> int:
@@ -78,7 +83,8 @@ def _flax_names():
 
 def dispnet_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """``tree``: the flax variables of DispNet as nested dicts of numpy
-    arrays, with or without the top-level "params" key."""
+    arrays or tensors, with or without the top-level "params" key; the
+    weights are on the tensors' device."""
     p = tree["params"] if "params" in tree else tree
     sd: dict[str, torch.Tensor] = {}
     for prefix, path, transposed in _flax_names():
@@ -128,19 +134,19 @@ def _leaves(tree, prefix=()):
 def fusenet_state_dict_from_flax(tree: Mapping,
                                  model: torch.nn.Module) -> dict:
     """``tree``: the flax variables of FuseNet as nested dicts of numpy
-    arrays, with or without the top-level "params" key; ``model``: the port's
-    FuseNet they are for (its block count and widths). Raises if the tree's
-    leaves are not the model's parameters."""
+    arrays or tensors, with or without the top-level "params" key;
+    ``model``: the port's FuseNet they are for (its block count and
+    widths). Raises if the tree's leaves are not the model's parameters."""
     p = tree["params"] if "params" in tree else tree
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(p):
         *mods, name = path
         mods = list(_FUSENET_RENAME.get(tuple(mods), mods))
-        a = np.asarray(leaf, np.float32)
+        a = _f32(leaf)
         if name == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            a = a.permute(3, 2, 0, 1) if a.dim() == 4 else a.T
         key = "bias" if name == "bias" else "weight"
-        sd[".".join(mods + [key])] = torch.from_numpy(np.ascontiguousarray(a))
+        sd[".".join(mods + [key])] = a.contiguous()
     want = set(model.state_dict())
     if set(sd) != want:
         raise ValueError(
@@ -175,8 +181,8 @@ def flax_tree_from_fusenet_state_dict(sd: Mapping) -> dict:
 
 def flownet_state_dict_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """``tree``: the flax variables of FlowNet as nested dicts of numpy
-    arrays, with or without the top-level "params" key. Raises unless it
-    holds the 40 leaves of the port's FlowNet."""
+    arrays or tensors, with or without the top-level "params" key. Raises
+    unless it holds the 40 leaves of the port's FlowNet."""
     p = tree["params"] if "params" in tree else tree
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(p):
@@ -221,10 +227,10 @@ def head_state_dict_from_flax(tree: Mapping, kind: str) -> dict:
     p = tree["params"] if "params" in tree else tree
     if "kernel" not in p:               # the head's one submodule
         (p,) = p.values()
-    k = np.asarray(p["kernel"], np.float32)
-    if k.ndim == 4:
+    k = _f32(p["kernel"])
+    if k.dim() == 4:
         w = _conv(k)
     else:                               # (H, Ci, F) -> (H, F, Ci)
-        w = torch.from_numpy(np.array(k.transpose(0, 2, 1), order="C"))
+        w = k.permute(0, 2, 1).contiguous()
     prefix = _HEAD_PREFIX[kind]
     return {prefix + "weight": w, prefix + "bias": _bias(p["bias"])}

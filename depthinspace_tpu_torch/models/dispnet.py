@@ -23,8 +23,6 @@ cuDNN algorithms, as a 2x2 convolution and a pixel shuffle:
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -204,19 +202,13 @@ class DispNet(nn.Module):
         return (full(disp1), full(disp2), full(disp3), full(disp4))
 
 
-@torch.no_grad()
-def init_dispnet_(model: DispNet, generator: torch.Generator) -> DispNet:
-    """Seeded init with flax's defaults: lecun-normal kernels (a normal
-    truncated at 2 std, rescaled to variance 1/fan_in) and zero biases."""
-    for mod in model.modules():
-        if isinstance(mod, (SameConv2d, SameConvTranspose2d)):
-            w = mod.weight
-            if isinstance(mod, SameConvTranspose2d):
-                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
-            else:
-                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            nn.init.zeros_(mod.bias)
-    return model
+def init_dispnet_(model: DispNet, key) -> DispNet:
+    """The weights ``DispNet().init(jax.random.key(seed), x)`` gives for
+    ``key = utils.jrandom.key(seed)``: flax's lecun-normal kernels (a
+    normal truncated at 2 std, rescaled to variance 1/fan_in) and zero
+    biases, each leaf from its flax key (``models/init.py``); drawn on the
+    model's device."""
+    from .convert import dispnet_state_dict_from_flax
+    from .init import dispnet_template, load_flax_init_
+    return load_flax_init_(model, dispnet_template(model), key,
+                           dispnet_state_dict_from_flax)

@@ -147,19 +147,14 @@ class FlowNet(nn.Module):
         return self.decode(self.encode(img1), self.encode(img2), H, W)
 
 
-@torch.no_grad()
-def init_flownet_(model: FlowNet, generator: torch.Generator) -> FlowNet:
-    """Seeded init with flax's defaults: lecun-normal kernels (a normal
-    truncated at 2 std, rescaled to variance 1/fan_in), zero biases."""
-    for mod in model.modules():
-        if isinstance(mod, SameConv2d):
-            w = mod.weight
-            fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            nn.init.zeros_(mod.bias)
-    return model
+def init_flownet_(model: FlowNet, key) -> FlowNet:
+    """The weights flax's ``FlowNet.init`` gives for the same key
+    (``utils.jrandom.key(seed)`` for ``jax.random.key(seed)``): lecun-normal
+    kernels, zero biases (``models/init.py``)."""
+    from .convert import flownet_state_dict_from_flax
+    from .init import flownet_template, load_flax_init_
+    return load_flax_init_(model, flownet_template(model), key,
+                           flownet_state_dict_from_flax)
 
 
 def flow_input(im: torch.Tensor, amb: torch.Tensor,

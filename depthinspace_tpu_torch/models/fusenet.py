@@ -24,8 +24,6 @@ geometry warp (K3) float32.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn as nn
@@ -472,26 +470,14 @@ class FuseNet(nn.Module):
         return disp.permute(0, 2, 3, 1).reshape(tl, N, H, W, 1)
 
 
-@torch.no_grad()
-def init_fusenet_(model: FuseNet, generator: torch.Generator) -> FuseNet:
-    """Seeded init with flax's defaults: lecun-normal kernels (a normal
-    truncated at 2 std, rescaled to variance 1/fan_in), xavier-uniform for
-    the point convolutions' last linear map, zero biases, GroupNorm scale 1
-    and bias 0."""
-    for mod in model.modules():
-        if isinstance(mod, Dense) and mod.init == "xavier":
-            fan_out, fan_in = mod.weight.shape
-            a = math.sqrt(6.0 / (fan_in + fan_out))
-            nn.init.uniform_(mod.weight, -a, a, generator=generator)
-        elif isinstance(mod, (Conv, Dense, nn.Conv2d)):
-            w = mod.weight
-            fan_in = int(np.prod(w.shape[1:]))
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            if mod.bias is not None:
-                nn.init.zeros_(mod.bias)
-        elif isinstance(mod, GroupNorm):
-            nn.init.ones_(mod.weight)
-            nn.init.zeros_(mod.bias)
-    return model
+def init_fusenet_(model: FuseNet, key) -> FuseNet:
+    """The weights flax's ``FuseNet.init`` gives for the same key
+    (``utils.jrandom.key(seed)`` for ``jax.random.key(seed)``): lecun-normal
+    kernels (a normal truncated at 2 std, rescaled to variance 1/fan_in),
+    xavier-uniform for the point convolutions' last linear map, zero
+    biases, GroupNorm scale 1 and bias 0 (``models/init.py``)."""
+    from .convert import fusenet_state_dict_from_flax
+    from .init import fusenet_template, load_flax_init_
+    return load_flax_init_(model, fusenet_template(model), key,
+                           lambda tree: fusenet_state_dict_from_flax(tree,
+                                                                     model))

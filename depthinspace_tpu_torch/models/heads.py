@@ -2,30 +2,34 @@
 reference's OutputLayerFactory): linear, disp, disp_row, pos and pos_row.
 DispNet uses 'disp' (``dispnet.SigmoidAffineHead``); the others are here
 for the API. Layout NCHW, as the port's models; the flax parameters map
-with ``models/convert.py::head_state_dict_from_flax``.
+with ``models/convert.py::head_state_dict_from_flax``, and
+``make_output_head(..., key=k)`` draws the weights the flax head's
+``init(k)`` gives (``models/init.py``: lecun-normal kernels, truncated at 2
+std, fan-in H * Ci for a per-row map; zero biases).
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 from torch import nn
 
 from ..ops.geometry import disp_to_depth
+from ..utils import jrandom
+from ..utils.jrandom import Key
+from .convert import head_state_dict_from_flax
 from .dispnet import SameConv2d, SigmoidAffineHead
+from .init import head_template, load_flax_init_
 
 
 class MultiLinear(nn.Module):
     """An independent linear map per image row: (N, Ci, H, W) -> (N, F, H,
-    W); weight (H, F, Ci), bias (H, F)."""
+    W); weight (H, F, Ci), bias (H, F), drawn by ``make_output_head``."""
 
     def __init__(self, height: int, in_features: int, features: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(height, features,
+        self.weight = nn.Parameter(torch.zeros(height, features,
                                                in_features))
         self.bias = nn.Parameter(torch.zeros(height, features))
-        nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_features))
 
     def forward(self, x):
         y = torch.einsum("nchw,hfc->nfhw", x, self.weight)
@@ -94,15 +98,20 @@ def pos_to_depth(pos: torch.Tensor, focal_length: float,
 
 
 def make_output_head(kind: str = "disp", in_features: int = 32, *,
-                     height: int | None = None, **params) -> nn.Module:
+                     height: int | None = None, key: Key = jrandom.key(0),
+                     **params) -> nn.Module:
     """The head of ``kind`` (the reference factory's type names) on
-    ``in_features`` channels; ``params``: alpha, beta, gamma, offset."""
+    ``in_features`` channels, with the weights the flax head's
+    ``init(key)`` gives; ``params``: alpha, beta, gamma, offset."""
     if kind == "linear":
-        return SameConv2d(in_features, 1, 3)
-    if kind == "disp":
-        return SigmoidAffineHead(in_features, **params)
-    if kind == "disp_row":
-        return DispRowHead(height, in_features, **params)
-    if kind in ("pos", "pos_row"):
-        return PosOutput(in_features, kind=kind, height=height, **params)
-    raise ValueError(f"unknown output head {kind!r}")
+        head = SameConv2d(in_features, 1, 3)
+    elif kind == "disp":
+        head = SigmoidAffineHead(in_features, **params)
+    elif kind == "disp_row":
+        head = DispRowHead(height, in_features, **params)
+    elif kind in ("pos", "pos_row"):
+        head = PosOutput(in_features, kind=kind, height=height, **params)
+    else:
+        raise ValueError(f"unknown output head {kind!r}")
+    return load_flax_init_(head, head_template(head, kind), key,
+                           lambda tree: head_state_dict_from_flax(tree, kind))

@@ -26,10 +26,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu", "warp2d_pairs.cu")
+SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu", "warp2d_pairs.cu",
+           "threefry.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,7 +45,7 @@ VARIANT_FLAGS = ("-DDIS_AB_VARIANTS",)
 launches = {"census_sad_fwd": 0, "xwarp_fwd": 0, "warp2d_fwd": 0,
             "warp2d_pairs_fwd": 0, "warp2d_v1_fwd": 0,
             "census_sad_bwd": 0, "xwarp_bwd": 0, "warp2d_bwd": 0,
-            "warp2d_pairs_bwd": 0, "warp2d_v1_bwd": 0}
+            "warp2d_pairs_bwd": 0, "warp2d_v1_bwd": 0, "threefry": 0}
 
 _lib = None
 # device copies of the static pair tables of warp2d_pairs and their
@@ -187,6 +189,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                          i32, i32, i32, i32, i32, i32, ptr]
     lib.dis_warp2d_pairs_bwd.restype = i32
+    u32 = ctypes.c_uint
+    lib.dis_threefry_draw.argtypes = [ptr, i64, u32, u32, i64, i64, i64, i32,
+                                      i32, f32, f32, f32, ptr]
+    lib.dis_threefry_draw.restype = i32
     lib.dis_error_string.argtypes = [i32]
     lib.dis_error_string.restype = ctypes.c_char_p
     return lib
@@ -566,3 +572,53 @@ def warp2d_pairs_bwd(flow: torch.Tensor, src_idx, g: torch.Tensor,
                 grad.data_ptr() if bf16 else None, S, M, H, W, C, int(bf16),
                 int(vector), device=g.device)
     return grad
+
+
+_TRANSFORMS = {"uniform": 0, "normal": 1, "bits": 2}
+
+
+def threefry_draw(key, shape: tuple, transform: str,
+                  dtype: torch.dtype = torch.float32, minval: float = 0.0,
+                  maxval: float = 1.0, *, device, run: int, stride: int = 0,
+                  offset: int = 0) -> torch.Tensor:
+    """``utils/jrandom.py``'s uniform (minval, maxval) or normal draws from
+    the threefry key ``key`` (two uint32 words) at the flat indices
+    ``offset + (i // run) * stride + i % run`` of the draw, i < count =
+    prod(shape); float32 or bfloat16 (jax's 16-bit path), shaped
+    ``shape``, on the CUDA ``device``; ``transform="bits"``: the 32 random
+    bits as int32 (``dtype`` ignored). One launch."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"threefry_draw: expected a CUDA device, got "
+                         f"{device}")
+    if transform not in _TRANSFORMS:
+        raise ValueError(f"threefry_draw: transform 'uniform', 'normal' or "
+                         f"'bits', got {transform!r}")
+    if transform == "bits":
+        dtype = torch.int32
+    elif dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"threefry_draw: float32 or bfloat16, got {dtype}")
+    count = 1
+    for d in shape:
+        count *= int(d)
+    if run <= 0 or stride < 0 or offset < 0:
+        raise ValueError(f"threefry_draw: run {run}, stride {stride}, "
+                         f"offset {offset}")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if transform == "bits":
+        lo = hi = torch.zeros(())
+    elif transform == "normal":
+        one = torch.tensor(1.0, dtype=dtype)
+        lo = torch.nextafter(-one, torch.zeros((), dtype=dtype))
+        hi = one
+    else:
+        lo = torch.tensor(minval, dtype=dtype)
+        hi = torch.tensor(maxval, dtype=dtype)
+    scale = hi - lo                   # rounded to dtype, as the plain version
+    sqrt2 = torch.tensor(float(np.float32(np.sqrt(2.0))),
+                         dtype=torch.float32 if transform == "bits" else dtype)
+    if count:
+        _launch("threefry", library().dis_threefry_draw, out.data_ptr(),
+                count, int(key[0]), int(key[1]), run, stride, offset,
+                _TRANSFORMS[transform], int(dtype == torch.bfloat16),
+                float(lo), float(scale), float(sqrt2), device=out.device)
+    return out

@@ -43,7 +43,7 @@ from ..device import resolve_device
 from ..models import (FlowNet, epe, flax_tree_from_flownet_state_dict,
                       flownet_state_dict_from_flax, init_flownet_,
                       multiscale_epe_loss)
-from ..utils import flax_msgpack
+from ..utils import flax_msgpack, jrandom
 from .presave_flow import farneback_flow, rigid_flow
 
 
@@ -281,7 +281,7 @@ def main(argv=None, device=None):
     # the two tools' batch sequences aligned
     pool.batch(rng, args.batch_size, crop)
     net = init_flownet_(FlowNet(args.in_channels),
-                        torch.Generator().manual_seed(args.seed)).to(dev)
+                        jrandom.key(args.seed)).to(dev)
     step = make_train_step(net, args.lr, args.steps)
 
     vrng = np.random.RandomState(12345)

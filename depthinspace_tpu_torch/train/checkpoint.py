@@ -1,8 +1,9 @@
 """Checkpoints, port of ``depthinspace_tpu/train/checkpoint.py``, with the
 same three artifacts in the experiment directory:
 
-1. ``state/``: a rolling full training state (model, Adam, step, the step's
-   generator, the host's numpy and python RNG, {epoch, min_err}), one
+1. ``state/``: a rolling full training state (model, Adam, step, the
+   step's threefry key as ``rng_data``, its two words, as the JAX package
+   saves it, the host's numpy and python RNG, {epoch, min_err}), one
    ``<epoch>/state.pt`` file per saved epoch in this package's own
    ``torch.save`` format, the newest ``max_to_keep`` kept. The JAX package
    writes orbax step directories there (``<epoch>/`` with
@@ -17,9 +18,11 @@ same three artifacts in the experiment directory:
    (``utils/flax_msgpack.py``), the file the JAX package's retest and
    presave tools read; this package reads the ones the JAX package writes.
 
-Data parallel: every rank calls ``save`` (it gathers each rank's step
-generator), rank 0 alone writes, and a barrier follows; then every rank
-can ``restore`` from the same files, each taking its own generator back.
+Data parallel: every rank holds the same key (the JAX mesh step's key is
+replicated), every rank calls ``save``, rank 0 alone writes, and a barrier
+follows; then every rank can ``restore`` from the same files. A state file
+of the port's older format (a torch generator state, no ``rng_data``)
+raises on restore: its draws cannot be continued.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ from ..models import (FuseNet, dispnet_state_dict_from_flax,
                       flax_tree_from_dispnet_state_dict,
                       flax_tree_from_fusenet_state_dict,
                       fusenet_state_dict_from_flax)
-from ..parallel.multihost import all_gather_object, barrier
-from ..utils import flax_msgpack
+from ..parallel.multihost import barrier
+from ..utils import flax_msgpack, jrandom
 from .orbax_state import OrbaxStep, is_orbax_step, restore_from_orbax
 from .state import TrainState
 
@@ -112,25 +115,21 @@ class StateCheckpointer:
         return {k.split(".")[0] for k in payload["model"]}
 
     def save(self, epoch: int, state: TrainState, min_err: dict) -> None:
-        generators = all_gather_object(state.generator.get_state(),
-                                       self.group)
         if self.rank == 0:
-            self._write(epoch, state, min_err, generators)
+            self._write(epoch, state, min_err)
         barrier(self.group)
 
-    def _write(self, epoch, state, min_err, generators) -> None:
+    def _write(self, epoch, state, min_err) -> None:
         payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step,
-            "generator": state.generator.get_state(),
+            "rng_data": jrandom.key_data(state.rng),
             "host_rng": {"numpy": np.random.get_state(),
                          "python": random.getstate()},
             "epoch": int(epoch),
             "min_err": {k: float(v) for k, v in min_err.items()},
         }
-        if self.group is not None:
-            payload["rank_generators"] = generators
         out = self.dir / str(epoch)
         out.mkdir(parents=True, exist_ok=True)
         tmp = out / (self.FILE + ".tmp")
@@ -145,31 +144,26 @@ class StateCheckpointer:
 
     def restore(self, state: TrainState):
         """Loads the newest saved epoch into ``state`` (model, optimizer,
-        step, generator) and the host RNGs. Returns (state, epoch, min_err),
-        or None when nothing is saved. A rank takes its own generator back
-        when the file was written by a run of as many ranks; else rank 0
-        takes the saved one and the other ranks keep their seeded ones. An
-        orbax step directory is read by every rank, each seeding its
-        generator from the saved key plus its rank."""
+        step, key) and the host RNGs. Returns (state, epoch, min_err), or
+        None when nothing is saved. An orbax step directory (the JAX
+        package's) is read alike, its ``rng_data`` the key."""
         epoch = self.latest_epoch()
         if epoch is None:
             return None
         if not (self.dir / str(epoch) / self.FILE).exists():
-            return restore_from_orbax(self.dir / str(epoch), state,
-                                      rank=self.rank)
+            return restore_from_orbax(self.dir / str(epoch), state)
         # this package's own file: it holds numpy and python RNG states
-        payload = torch.load(self.dir / str(epoch) / self.FILE,
-                             map_location="cpu", weights_only=False)
+        path = self.dir / str(epoch) / self.FILE
+        payload = torch.load(path, map_location="cpu", weights_only=False)
+        if "rng_data" not in payload:
+            raise ValueError(
+                f"{path} holds a torch generator state (the port's format "
+                "before it drew with the JAX package's threefry keys); its "
+                "draws cannot be continued: start the run anew")
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        gens = payload.get("rank_generators")
-        world = (1 if self.group is None
-                 else torch.distributed.get_world_size(self.group))
-        if gens is not None and len(gens) == world:
-            state.generator.set_state(gens[self.rank])
-        elif self.rank == 0:
-            state.generator.set_state(payload["generator"])
+        state.rng = jrandom.wrap_key_data(payload["rng_data"])
         np.random.set_state(payload["host_rng"]["numpy"])
         random.setstate(payload["host_rng"]["python"])
         return state, int(payload["epoch"]), dict(payload["min_err"])

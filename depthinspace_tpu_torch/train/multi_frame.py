@@ -12,6 +12,7 @@ import re
 import torch
 
 from ..models import FuseNet, init_fusenet_
+from ..utils import jrandom
 from .steps import make_mf_eval_step, make_mf_train_step
 from .worker import Worker
 
@@ -33,8 +34,8 @@ class MultiFrameWorker(Worker):
         return super().init_state(resume)
 
     def make_model(self) -> FuseNet:
-        """A seeded init (flax's defaults; the JAX package's init draws
-        other numbers from the same seed)."""
+        """The JAX worker's init: ``FuseNet.init(jax.random.key(seed))``,
+        drawn on the run's device."""
         H, W = self.imsize
         model = FuseNet(imsize=(H, W), K=self.settings.K,
                         track_length=self.cfg.track_length,
@@ -42,8 +43,8 @@ class MultiFrameWorker(Worker):
                         max_disp=self.cfg.max_disp,
                         compute_dtype=getattr(torch, self.cfg.mf_dtype),
                         use_remat=self.cfg.mf_remat)
-        return init_fusenet_(model, torch.Generator().manual_seed(
-            self.cfg.seed))
+        return init_fusenet_(model.to(self.device),
+                             jrandom.key(self.cfg.seed))
 
     def make_train_step(self, state):
         return make_mf_train_step(state.model, self.ctx, state,

@@ -16,10 +16,10 @@ train/objective.py``:
 with the training-time device augmentation (``augment_batch_device``) and
 the flow sources "file", "rigid", "pred" (DIS-MF: the rigid flow of the
 primary disparity) and "net" (the frozen FlowNet's flow of the batch's
-images). The JAX package draws its
-random numbers from jax keys; here they come from an explicit
-``torch.Generator``, or are passed in (the tests hand both packages the
-same numbers).
+images). The random numbers are the JAX package's: the same threefry keys
+and the same draws (``utils/jrandom.py``; on the card one launch of
+``csrc/threefry.cu`` an array), so one key gives both packages the same
+augmentation and SGM noise. The tests may also pass the draws in.
 
 Data parallel: with ``LossContext.group`` set, every batch-wide mean and
 masked ratio is over the group's global batch (``losses/reduce.py``): a
@@ -42,6 +42,7 @@ from ..losses.reduce import global_mean, global_ratio
 from ..models import flow_all_pairs
 from ..ops import disp_to_depth, lcn, resize_bilinear
 from ..parallel.multihost import all_reduce_sum
+from ..utils import jrandom
 
 FLOW_SOURCES = ("file", "rigid", "pred", "net")
 
@@ -184,25 +185,68 @@ class AugmentDraws(NamedTuple):
     sp_u: torch.Tensor                # (2, n, H, W) U[0, 1)
 
 
-def draw_augment(n: int, H: int, W: int, ctx: LossContext,
-                 generator: torch.Generator) -> AugmentDraws:
-    """Draw one augmentation's random numbers from ``generator``."""
-    dev = generator.device
+class Share(NamedTuple):
+    """A data-parallel rank's frames of the global (tl, bs * world) batch:
+    the ``b`` block [rank * bs, (rank + 1) * bs) of every ``t``. Its draws
+    are those elements of the global arrays (the JAX mesh step draws
+    global arrays from one replicated key)."""
+    bs: int
+    rank: int
+    world: int
 
-    def uni(lo, hi, shape=(n, 1, 1)):
-        return lo + (hi - lo) * torch.rand(shape, generator=generator,
-                                           device=dev)
 
-    def normal():
-        return torch.randn((n, H, W), generator=generator, device=dev)
+def share_of(bs: int, group) -> Optional[Share]:
+    """The rank's ``Share`` of a local batch of ``bs`` under ``group``, or
+    None on one process."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+    world = dist.get_world_size(group)
+    return Share(bs, dist.get_rank(group), world) if world > 1 else None
+
+
+def _draw(k, shape, transform: str, device, share: Optional[Share],
+          frame_size: int, dtype=torch.float32, minval: float = 0.0,
+          maxval: float = 1.0) -> torch.Tensor:
+    """``shape``'s elements of the global draw from k: all of them, or the
+    share's (frames of ``frame_size`` elements; leading axes over frames
+    repeat with the global frame count's stride)."""
+    blocks = {}
+    if share is not None:
+        run = share.bs * frame_size
+        blocks = dict(run=run, stride=run * share.world,
+                      offset=share.rank * run)
+    return jrandom.draw(k, shape, transform, dtype, minval, maxval,
+                        device=device, **blocks)
+
+
+def draw_augment(n: int, H: int, W: int, ctx: LossContext, key,
+                 device=None, share: Optional[Share] = None
+                 ) -> AugmentDraws:
+    """One augmentation's random numbers from ``key``, as the JAX
+    ``augment_batch_device`` draws them: a 10-way split, then (n, 1, 1)
+    uniforms, (n, H, W) normals and the (2, n, H, W) salt-and-pepper
+    uniforms, each from its key. With ``share``, this rank's elements."""
+    ks = jrandom.split(key, 10)
+
+    def uni(k, lo, hi, shape=(n, 1, 1), frame=1):
+        return _draw(k, shape, "uniform", device, share, frame,
+                     minval=lo, maxval=hi)
+
+    def normal(k):
+        return _draw(k, (n, H, W), "normal", device, share, H * W)
 
     return AugmentDraws(
-        blur_coin=uni(0.0, 1.0), blur_sigma_im=uni(0.2, ctx.aug_max_blur),
-        blur_sigma_amb=uni(0.2, ctx.aug_max_blur),
-        noise_im=normal(), noise_scale_im=uni(0.0, ctx.aug_max_noise),
-        noise_amb=normal(), noise_scale_amb=uni(0.0, ctx.aug_max_noise),
-        sp_coin=uni(0.0, 1.0), sp_ratio=uni(0.0, ctx.aug_max_sp_noise),
-        sp_u=uni(0.0, 1.0, (2, n, H, W)))
+        blur_coin=uni(ks[0], 0.0, 1.0),
+        blur_sigma_im=uni(ks[1], 0.2, ctx.aug_max_blur),
+        blur_sigma_amb=uni(ks[2], 0.2, ctx.aug_max_blur),
+        noise_im=normal(ks[3]),
+        noise_scale_im=uni(ks[4], 0.0, ctx.aug_max_noise),
+        noise_amb=normal(ks[5]),
+        noise_scale_amb=uni(ks[6], 0.0, ctx.aug_max_noise),
+        sp_coin=uni(ks[7], 0.0, 1.0),
+        sp_ratio=uni(ks[8], 0.0, ctx.aug_max_sp_noise),
+        sp_u=uni(ks[9], 0.0, 1.0, (2, n, H, W), H * W))
 
 
 def augment_batch_device(batch, draws: AugmentDraws):
@@ -288,14 +332,14 @@ def _total_and_components(comps: list, ctx: LossContext):
 
 
 def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
-              epoch: float = 0, generator: Optional[torch.Generator] = None,
-              sgm_noise=None):
+              epoch: float = 0, rng=None, sgm_noise=None):
     """DIS-SF / DIS-FTSF loss vector. outs: 4 full-resolution maps
     (tl*bs, H, W, 1), finest first. Returns (total, components): 6
     components, + 4 with ``use_pseudo_gt``, + 4 when training on real data.
 
     The SGM warmup term's noise is ``sgm_noise`` (4 standard-normal tensors
-    shaped like the maps) or, when that is None, drawn from ``generator``."""
+    shaped like the maps) or, when that is None, drawn as the JAX step
+    draws it: ``normal(split(rng, 4)[s])`` for the map of scale s."""
     tl, bs, H, W = batch.im.shape
     _, im_lcn, im_std, amb = preprocess_images(batch, ctx.lcn_radius)
 
@@ -342,23 +386,26 @@ def sf_losses(outs, batch, ctx: LossContext, *, train: bool = False,
     if train and ctx.data_type == "real":
         sgm = batch.sgm_disp.reshape(tl * bs, H, W)
         gate = 1.0 if epoch < ctx.warmup_epochs else 0.0
+        if sgm_noise is None:
+            share = share_of(bs, ctx.group)
+            sgm_noise = [_draw(k, (tl * bs, H, W), "normal", sgm.device,
+                               share, H * W, o.dtype)
+                         for k, o in zip(jrandom.split(rng, len(outs)), outs)]
         for s, o in enumerate(outs):
-            noise = (sgm_noise[s] if sgm_noise is not None else torch.randn(
-                o[..., 0].shape, generator=generator, device=o.device))
-            val = _sgm_warmup_term(o[..., 0], sgm, noise, ctx)
+            val = _sgm_warmup_term(o[..., 0], sgm, sgm_noise[s], ctx)
             comps.append(ctx.sgm_weight * gate * val)
 
     return _total_and_components(comps, ctx)
 
 
 def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
-              epoch: float = 0, generator: Optional[torch.Generator] = None,
-              sgm_noise=None):
+              epoch: float = 0, rng=None, sgm_noise=None):
     """DIS-MF loss vector. out: (tl, bs, H, W, 1). Returns (total,
     components): 3 components, + 1 (the primary L1, gated to epoch < 2) when
     training, + 1 (the SGM warmup) when training on real data. The SGM
     term's noise is ``sgm_noise`` (standard normal, (tl*bs, H, W)) or, when
-    that is None, drawn from ``generator``."""
+    that is None, ``normal(rng)`` in the output's dtype, as the JAX step
+    draws it."""
     tl, bs, H, W = batch.im.shape
     _, im_lcn, im_std, amb = preprocess_images(batch, ctx.lcn_radius)
     o = out[..., 0].reshape(tl * bs, H, W)
@@ -385,8 +432,9 @@ def mf_losses(out, batch, ctx: LossContext, *, train: bool = False,
         if ctx.data_type == "real":
             sgm = batch.sgm_disp.reshape(tl * bs, H, W)
             gate_sgm = 1.0 if epoch < ctx.warmup_epochs else 0.0
-            noise = (sgm_noise if sgm_noise is not None else torch.randn(
-                o.shape, generator=generator, device=o.device))
+            noise = (sgm_noise if sgm_noise is not None else _draw(
+                rng, o.shape, "normal", o.device, share_of(bs, ctx.group),
+                H * W, o.dtype))
             val = _sgm_warmup_term(o, sgm, noise, ctx)
             comps.append(ctx.sgm_weight * gate_sgm * val)
 

@@ -25,9 +25,8 @@ converters of ``models/convert.py`` (transposes and flips only, and Adam is
 elementwise, so the moments map exactly), the count becomes each
 parameter's Adam ``step``; optax.adam and ``torch.optim.Adam`` compute the
 same update from them. ``rng_data``, the raw uint32 words of the JAX key,
-seeds the step's ``torch.Generator`` deterministically, but the port's
-random draws differ from JAX's whatever the seed: a resumed run augments
-and samples otherwise than the JAX run would have.
+is the step key (``utils/jrandom.py``), so a resumed run continues on the
+JAX run's own draws.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ import torch
 
 from ..models import (FuseNet, dispnet_state_dict_from_flax,
                       fusenet_state_dict_from_flax)
-from ..utils import zstd
+from ..utils import jrandom, zstd
 from ..utils.ocdbt import OcdbtStore
 from .state import TrainState
 
@@ -178,26 +177,15 @@ class OrbaxStep:
             return pickle.load(f)
 
 
-def generator_seed(rng_data: np.ndarray) -> int:
-    """A torch seed from the raw words of a JAX key (deterministic; the
-    port's draws from it are not JAX's)."""
-    words = np.asarray(rng_data, np.uint32).reshape(-1)
-    seed = 0
-    for w in words:
-        seed = (seed * 0x9E3779B1 + int(w)) % (1 << 63)
-    return seed
-
-
 def _state_dict(tree: dict, model: torch.nn.Module) -> dict:
     if isinstance(model, FuseNet):
         return fusenet_state_dict_from_flax(tree, model)
     return dispnet_state_dict_from_flax(tree)
 
 
-def restore_from_orbax(step_dir, state: TrainState, rank: int = 0):
+def restore_from_orbax(step_dir, state: TrainState):
     """Loads the orbax step ``step_dir`` into ``state`` (its DispNet or
-    FuseNet, its Adam, step and generator; the generator seeded from the
-    key's words plus ``rank``) and the host's numpy and python RNGs.
+    FuseNet, its Adam, step and key) and the host's numpy and python RNGs.
     Returns (state, epoch, min_err)."""
     ck = OrbaxStep(step_dir)
     tree = ck.tree()
@@ -212,7 +200,7 @@ def restore_from_orbax(step_dir, state: TrainState, rank: int = 0):
                     for i, (name, _) in enumerate(model.named_parameters())}
     state.optimizer.load_state_dict(opt)
     state.step = int(tree["step"])
-    state.generator.manual_seed(generator_seed(tree["rng_data"]) + rank)
+    state.rng = jrandom.wrap_key_data(tree["rng_data"])
     host = ck.host_rng()
     if host is not None:
         np.random.set_state(host["numpy"])

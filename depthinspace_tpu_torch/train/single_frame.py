@@ -5,9 +5,8 @@ adds the DIS-FTSF pseudo-GT term from multi_frame_disp.hdf5)."""
 
 from __future__ import annotations
 
-import torch
-
 from ..models import DispNet, init_dispnet_
+from ..utils import jrandom
 from .steps import make_sf_eval_step, make_sf_train_step
 from .worker import Worker
 
@@ -16,10 +15,10 @@ class SingleFrameWorker(Worker):
     architecture = "single_frame"
 
     def make_model(self) -> DispNet:
-        """A seeded init (flax's defaults; the JAX package's init draws
-        other numbers from the same seed)."""
-        return init_dispnet_(DispNet(max_disp=self.cfg.max_disp),
-                             torch.Generator().manual_seed(self.cfg.seed))
+        """The JAX worker's init: ``DispNet.init(jax.random.key(seed))``,
+        drawn on the run's device (the card's draws are the CPU's)."""
+        return init_dispnet_(DispNet(max_disp=self.cfg.max_disp).to(
+            self.device), jrandom.key(self.cfg.seed))
 
     def make_train_step(self, state):
         return make_sf_train_step(state.model, self.ctx, state,

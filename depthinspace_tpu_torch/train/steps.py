@@ -2,7 +2,9 @@
 ``depthinspace_tpu/train/steps.py::_make_step_fns``.
 
 The train step runs the forward, the loss vector, backward and one Adam
-update, eagerly; the eval step runs the forward and the components under
+update, eagerly, with the JAX step's keys: ``state.rng`` splits into (next,
+step, augmentation) keys, and with accumulation microbatch i folds i into
+the step's two; the eval step runs the forward and the components under
 ``torch.inference_mode()`` and returns disp0 quantized to u16 x256 (1/256
 px) as the JAX step does. Both decode the batch's 16-bit wire fields
 first (``data/wire.py::decode_batch``; float32 fields pass through), then
@@ -27,8 +29,10 @@ from ..data.batch import Batch
 from ..data.wire import decode_batch, to_u16_disp
 from ..ops import disp_to_depth
 from ..parallel.multihost import all_reduce_sum
+from ..utils import jrandom
 from .objective import (LossContext, augment_batch_device, draw_augment,
-                        mf_losses, prepare_batch, preprocess_images, sf_losses)
+                        mf_losses, prepare_batch, preprocess_images,
+                        sf_losses, share_of)
 from .state import TrainState
 
 
@@ -87,17 +91,23 @@ def _make_train_step(architecture: str, model: torch.nn.Module,
         state.optimizer.zero_grad(set_to_none=True)
         batch = decode_batch(batch)
         comps_sum = None
+        state.rng, step_rng, aug_rng = jrandom.split(state.rng, 3)
         chunks = chunk_batch(batch, accum_steps) if accum_steps > 1 \
             else [batch]
-        for b in chunks:
+        for i, b in enumerate(chunks):
+            srng, arng = step_rng, aug_rng
+            if accum_steps > 1:
+                srng = jrandom.fold_in(step_rng, i)
+                arng = jrandom.fold_in(aug_rng, i)
             if ctx.augment:
                 tl, bs, H, W = b.im.shape
                 b = augment_batch_device(b, draw_augment(
-                    tl * bs, H, W, ctx, state.generator))
+                    tl * bs, H, W, ctx, arng, b.im.device,
+                    share_of(bs, ctx.group)))
             b = prepare_batch(b, ctx, multi_frame)
             outs = forward(model, b, ctx)
             total, comps = losses(outs, b, ctx, train=True, epoch=epoch,
-                                  generator=state.generator)
+                                  rng=srng)
             total.backward()
             comps = comps.detach()
             comps_sum = comps if comps_sum is None else comps_sum + comps

@@ -29,8 +29,9 @@ every process drives one card (``parallel/multihost.py``), and each step
 is the JAX mesh step: ``train_batch_size`` is the global batch, each rank
 loads its block of it (with accumulation its block of each global chunk),
 the losses are global-batch losses and the gradients are summed over the
-ranks (``train/steps.py``). All ranks start from rank 0's state; each
-draws its device augmentation from its own generator (seed + rank). Test
+ranks (``train/steps.py``). All ranks start from rank 0's state and hold
+the same key, ``jrandom.key(seed)`` as in JAX, each drawing its frames'
+elements of the global draws (``train/objective.py::Share``). Test
 batches are padded to the world multiple; the exact metric takes the
 disparities gathered to rank 0, the device histogram is summed over the
 ranks. Only rank 0 writes train.log, metrics.json, checkpoints and
@@ -330,12 +331,12 @@ class Worker:
             raise ValueError(f"invalid cmd {cmd!r}")
 
     def init_state(self, resume: bool = False) -> TrainState:
-        """A fresh state; every rank takes rank 0's parameters, and its own
-        generator (seed + rank). ``resume``: the newest saved state will be
-        loaded into it (a subclass may shape its model after that state)."""
+        """A fresh state; every rank takes rank 0's parameters, and the
+        key ``jrandom.key(seed)``, the init's key, as the JAX worker's
+        ``state.rng``. ``resume``: the newest saved state will be loaded
+        into it (a subclass may shape its model after that state)."""
         state = TrainState.create(self.make_model(), self.cfg.learning_rate,
-                                  seed=self.cfg.seed + self.rank,
-                                  device=self.device)
+                                  seed=self.cfg.seed, device=self.device)
         replicate_state(state.model, state.optimizer, self.group)
         return state
 

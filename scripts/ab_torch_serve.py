@@ -58,7 +58,7 @@ def serve_side(root: Path, reps: int) -> dict:
         root.resolve()), depthinspace_tpu_torch.__file__
     dev = require_cuda()
     settings = make_settings(H, W)
-    gen = lambda seed: torch.Generator().manual_seed(seed)
+    from depthinspace_tpu_torch.utils.jrandom import key as gen
     sf = init_dispnet_(DispNet(max_disp=128.0), gen(0))
 
     def rate(call, n_items: int) -> tuple[float, bool]:

@@ -8,11 +8,14 @@
 #    them with room for N samples (about 22 MB a sample with both presaves);
 # 2. generates N synthetic samples at 512x432 (create_syn_data default,
 #    procedural objects) in PROCS processes over --start ranges;
-# 3. runs tools/pipeline_drive.py on them (DIS-SF, its full-split retest,
-#    the SF presave, DIS-MF, its retest and presave, DIS-FTSF and its
-#    retest) with FLAGS (default: --flow_source pred --sf_epochs 19
-#    --mf_epochs 7) and a --minutes budget of what is left of BUDGET_S
-#    seconds after a reserve for step 4;
+# 3. scores the untrained init of the worker's seed (RunConfig.seed 42:
+#    the JAX worker's init from jax.random.key(42)) on the full test split
+#    with the exact metric (train_val --cmd test_init; init_metrics.json),
+#    then runs tools/pipeline_drive.py on the samples (DIS-SF, its
+#    full-split retest, the SF presave, DIS-MF, its retest and presave,
+#    DIS-FTSF and its retest) with FLAGS (default: --flow_source pred
+#    --sf_epochs 19 --mf_epochs 7) and a --minutes budget of what is left
+#    of BUDGET_S seconds after a reserve for step 4;
 # 4. retests the self-supervised DIS-SF checkpoint once more with the exact
 #    host metric (--eval_metrics exact);
 # 5. copies pipeline_summary.json, every stage's metrics.json and train.log,
@@ -22,6 +25,11 @@
 #
 # Defaults: N 1536 (the worker's synthetic splits: valid [0:512], test
 # [512:1024], train [1024:1536]), PROCS 8, BUDGET_S 3300.
+#
+# DIS-SF alone, with the whole budget and no MF or FTSF stage:
+#
+#   bash scripts/torch_accuracy_run.sh 1536 8 2400 -- --flow_source pred \
+#       --sf_epochs 19 --mf_epochs 0 --sf_frac 1 --reserve_s 0
 set -uo pipefail
 cd "$(dirname "$0")/.."
 ROOT=$(pwd)
@@ -81,9 +89,16 @@ if (( gen_ok == 0 || n_made != N )); then
   log "generation failed"; tail -n 5 "$OUT"/gen_*.log; exit 1
 fi
 
-# -- 3. the staged pipeline
+# -- 3. the init of the worker's seed, then the staged pipeline
 printf '{"DATA_DIR": "%s", "OUTPUT_DIR": "%s"}\n' "$DATA" "$RUN_OUT" > "$BASE/config.json"
 export DIS_CONFIG=$BASE/config.json
+log "train_val --cmd test_init"
+timeout -k 30 600 python -m depthinspace_tpu_torch.train_val \
+    --architecture single_frame --cmd test_init --flow_source pred \
+    --eval_metrics exact --test_batch_size 16 > "$OUT/test_init.log" 2>&1
+log "test_init exited with $?"
+python -c 'import json, sys; print(json.dumps(json.load(open(sys.argv[1]))["-1"]["test"]))' \
+    "$RUN_OUT/single_frame/metrics.json" | tee "$OUT/init_metrics.json"
 LEFT=$(( BUDGET_S - ($(date +%s) - T0) - EXACT_RESERVE_S ))
 MINUTES=$(python -c "print(round($LEFT / 60, 2))")
 log "pipeline_drive --minutes $MINUTES ${FLAGS[*]}"

@@ -16,8 +16,21 @@ from depthinspace_tpu_torch.models import (DispNet, dispnet_state_dict_from_flax
 from depthinspace_tpu_torch.models.dispnet import (SameConv2d,
                                                    SameConvTranspose2d,
                                                    _same_pads)
+from depthinspace_tpu_torch.utils import jrandom
 
 H, W = 64, 56
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs several test processes on the machine's cores at once;
+    two intra-op threads per process keep torch from oversubscribing them
+    (test_init_is_seeded's two full-width inits took 748 s with all of
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_tree(params):
@@ -106,9 +119,9 @@ def test_dispnet_matches_flax(jax_dispnet):
 
 
 def test_init_is_seeded():
-    a = init_dispnet_(DispNet(), torch.Generator().manual_seed(5))
-    b = init_dispnet_(DispNet(), torch.Generator().manual_seed(5))
-    c = init_dispnet_(DispNet(), torch.Generator().manual_seed(6))
+    a = init_dispnet_(DispNet(), jrandom.key(5))
+    b = init_dispnet_(DispNet(), jrandom.key(5))
+    c = init_dispnet_(DispNet(), jrandom.key(6))
     wa, wb, wc = (m.downs[0].conv0.weight for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
     # lecun-normal scale: std ~ sqrt(1 / fan_in)

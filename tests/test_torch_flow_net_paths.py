@@ -55,6 +55,7 @@ from depthinspace_tpu_torch.train.checkpoint import save_net_params
 from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
 from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
 from depthinspace_tpu_torch.utils.args import parse_args
+from depthinspace_tpu_torch.utils import jrandom
 
 H, W = 64, 56
 WEIGHTS = Path(__file__).resolve().parents[1] / "output" / "flownet.msgpack"
@@ -123,7 +124,7 @@ def test_presave_disp_net_equals_its_composition(data, tmp_path, flow_net):
     flow; shape, finiteness, range."""
     settings = load_settings(data / "settings.pkl")
     model = init_fusenet_(FuseNet((H, W), settings.K, 4),
-                          torch.Generator().manual_seed(4)).eval()
+                          jrandom.key(4)).eval()
     out_dir = tmp_path / "out"
     (out_dir / "multi_frame").mkdir(parents=True)
     save_net_params(out_dir / "multi_frame", 0, model)
@@ -173,7 +174,7 @@ def test_sf_steps_with_net_flow_match_jax(data, host_batch, flow_net, which):
     disparity within one u16 unit."""
     settings = load_settings(data / "settings.pkl")
     net = init_dispnet_(DispNet(max_disp=128.0),
-                        torch.Generator().manual_seed(5))
+                        jrandom.key(5))
     params = jax.tree.map(jnp.asarray,
                           flax_tree_from_dispnet_state_dict(net.state_dict()))
     flow_params, _ = jax_load_flow_params(WEIGHTS, (H, W))
@@ -222,7 +223,7 @@ def test_mf_step_net_flow_equals_the_step_fed_that_flow():
         model = init_fusenet_(FuseNet((32, 24), settings.K, 4, block_num=1,
                                       channels=8,
                                       compute_dtype=torch.float32),
-                              torch.Generator().manual_seed(6))
+                              jrandom.key(6))
         state = TrainState.create(model, 1e-4, seed=0, device="cpu")
         comps = make_mf_train_step(model, make_loss_context(
             settings, 4, device="cpu", **kw), state)(batch)
@@ -248,10 +249,10 @@ def test_track_server_learned_flow_equals_its_composition(flow_net):
                          disp_range=(2.0, 8.0))
     mv = lambda a: np.ascontiguousarray(np.moveaxis(a, 1, 0))
     im, amb, R, t = mv(b.im), mv(b.ambient), mv(b.R), mv(b.t)
-    sf = init_dispnet_(DispNet(), torch.Generator().manual_seed(0)).eval()
+    sf = init_dispnet_(DispNet(), jrandom.key(0)).eval()
     mf = init_fusenet_(FuseNet((Ht, Wt), settings.K, tl, block_num=1,
                                channels=8, compute_dtype=torch.float32),
-                       torch.Generator().manual_seed(1)).eval()
+                       jrandom.key(1)).eval()
     srv = TrackDisparityServer(sf, mf, flow_net, imsize=(Ht, Wt),
                                K=settings.K, max_tracks=4, device="cpu")
     out = srv.infer(im, amb, R, t)
@@ -288,10 +289,10 @@ def test_track_server_from_files_with_flow_params(tmp_path, flow_net):
     b = make_track_batch(settings, tl=4, bs=1, seed=8, disp_range=(2.0, 8.0))
     mv = lambda a: np.ascontiguousarray(np.moveaxis(a, 1, 0))
     req = (mv(b.im), mv(b.ambient), mv(b.R), mv(b.t))
-    sf = init_dispnet_(DispNet(), torch.Generator().manual_seed(0)).eval()
+    sf = init_dispnet_(DispNet(), jrandom.key(0)).eval()
     mf = init_fusenet_(FuseNet((Ht, Wt), settings.K, 4,
                                compute_dtype=torch.float32),
-                       torch.Generator().manual_seed(1)).eval()
+                       jrandom.key(1)).eval()
     kw = dict(imsize=(Ht, Wt), K=settings.K, compute_dtype=torch.float32,
               device="cpu")
     ref = TrackDisparityServer(sf, mf, flow_net, imsize=(Ht, Wt),

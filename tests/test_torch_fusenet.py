@@ -34,6 +34,7 @@ from depthinspace_tpu_torch.models.dispnet import _same_pads
 from depthinspace_tpu_torch.models.fusenet import GroupNorm
 from depthinspace_tpu_torch.train.checkpoint import (load_net_params,
                                                      save_net_params)
+from depthinspace_tpu_torch.utils import jrandom
 
 H, W, TL, N = 64, 56, 4, 2
 BLOCKS, CH = 2, 16
@@ -222,7 +223,7 @@ def test_converter_round_trip_and_net_params_cross(setup, tmp_path):
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(loaded)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     m2 = init_fusenet_(FuseNet((H, W), K, TL, block_num=BLOCKS, channels=CH),
-                       torch.Generator().manual_seed(0))
+                       jrandom.key(0))
     m2.load_state_dict(load_net_params(path, m2))
     for k, v in m.state_dict().items():
         assert torch.equal(m2.state_dict()[k], v)
@@ -236,7 +237,7 @@ def test_init_follows_flax_defaults():
     2-std truncation's rescale), xavier-uniform for the point
     convolutions' last map, zero biases, unit GroupNorm scales."""
     m = init_fusenet_(FuseNet((32, 32), np.eye(3), 4, channels=32),
-                      torch.Generator().manual_seed(0))
+                      jrandom.key(0))
     w = m.ref_res1.Conv_0.weight
     assert abs(float(w.detach().std()) * np.sqrt(32 * 9) - 1.0) < 0.05
     x = m.block0.conv3d_1.Dense_2.weight

@@ -660,3 +660,44 @@ def test_warp2d_v1_runs_k3_kernels_under_its_own_counters(cuda, M, H, W, C):
     torch.testing.assert_close(out, warp2d_plain(img, flow), rtol=0, atol=0)
     torch.testing.assert_close(grad, warp2d_bwd_plain(flow, g), rtol=0,
                                atol=1e-5)
+
+
+# csrc/threefry.cu: jax.random's draws, against utils/jrandom.py's plain
+# version on the same card, bit for bit (the kernel rounds where the plain
+# version does: its FMAs fused, every other operation a _rn intrinsic)
+@pytest.mark.parametrize("transform,dtype,lo,hi", [
+    ("uniform", torch.float32, 0.0, 1.0), ("uniform", torch.float32, -1.3,
+                                           0.01),
+    ("normal", torch.float32, 0.0, 1.0), ("normal", torch.bfloat16, 0.0, 1.0),
+    ("uniform", torch.bfloat16, 0.2, 3.7)])
+@pytest.mark.parametrize("shape", [(1,), (3, 5, 7), (8, 512, 432)])
+def test_threefry_kernel_matches_plain(cuda, transform, dtype, lo, hi,
+                                       shape):
+    from depthinspace_tpu_torch.utils import jrandom
+    k = jrandom.key(42)
+    before = kernels.launches["threefry"]
+    got = jrandom.draw(k, shape, transform, dtype, lo, hi, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches["threefry"] == before + 1
+    want = (jrandom.uniform(k, shape, dtype, lo, hi, device=cuda)
+            if transform == "uniform"
+            else jrandom.normal(k, shape, dtype, device=cuda))
+    itype = torch.int32 if dtype == torch.float32 else torch.int16
+    assert got.dtype == dtype and got.shape == shape
+    assert torch.equal(got.view(itype), want.view(itype))
+
+
+def test_threefry_bits_and_a_ranks_block(cuda):
+    """The raw bits, and a block draw (runs of 3 frames every 8 from frame
+    4, as a data-parallel rank's share), equal the plain whole draw's."""
+    from depthinspace_tpu_torch.utils import jrandom
+    k = jrandom.key(7)
+    bits = kernels.threefry_draw(k, (6, 8, 33), "bits", device=cuda,
+                                 run=6 * 8 * 33)
+    assert torch.equal(bits.to(torch.int64) & 0xFFFFFFFF,
+                       jrandom.bits(k, (6, 8, 33), device=cuda))
+    whole = jrandom.normal(k, (6, 8, 33), device=cuda)
+    got = jrandom.draw(k, (6, 3, 33), "normal", device=cuda, run=3 * 33,
+                       stride=8 * 33, offset=4 * 33)
+    assert torch.equal(got.view(torch.int32),
+                       whole[:, 4:7].contiguous().view(torch.int32))

@@ -167,12 +167,14 @@ def test_mf_eval_step_matches_jax(setup, flow_source):
     assert dd.max() <= 1
 
 
-def _jax_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3):
-    """The JAX MF train step run op by op, n_steps times: the states (the
-    first one and after each step) and each step's components."""
+def _jax_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3,
+               **kw):
+    """The JAX MF train step run op by op, n_steps times (``kw`` in its
+    loss context): the states (the first one and after each step) and each
+    step's components."""
     s, _, jm, params, _ = setup
     ctx = jax_objective.make_loss_context(s, track_length=TL,
-                                          flow_source=flow_source)
+                                          flow_source=flow_source, **kw)
     opt = optax.adam(1e-4)
     train_step, _, consts = _make_step_fns(jm, ctx, opt, "multi_frame",
                                            accum_steps=accum_steps)
@@ -194,17 +196,20 @@ def three_jax_steps(setup):
     return (b,) + _jax_steps(setup, b)
 
 
-def _port_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3):
+def _port_steps(setup, b, accum_steps=1, flow_source="file", n_steps=3,
+                seed=0, **kw):
+    """The port's step n_steps times from key(seed): (model, components,
+    the state's key after the last step)."""
     s, K, _, _, params_np = setup
     m = _port_net(K, params_np)
-    state = TrainState.create(m, 1e-4, seed=0, device="cpu")
+    state = TrainState.create(m, 1e-4, seed=seed, device="cpu")
     step = make_mf_train_step(m, make_loss_context(
-        s, TL, device="cpu", flow_source=flow_source), state,
+        s, TL, device="cpu", flow_source=flow_source, **kw), state,
         accum_steps=accum_steps)
     tb = batch_to_torch(b, "cpu")
     out = [step(tb).numpy() for _ in range(n_steps)]
     assert state.step == n_steps
-    return m, out
+    return m, out, list(state.rng)
 
 
 def test_mf_train_step_matches_jax_for_three_steps(setup, three_jax_steps):
@@ -276,9 +281,28 @@ def test_mf_train_step_variants_match_jax(setup, accum_steps, flow_source):
     of the primary disparity): rtol 1e-4 over 2 steps."""
     b = _batch(setup[0], accum_steps)
     _, ref = _jax_steps(setup, b, accum_steps, flow_source, n_steps=2)
-    _, out = _port_steps(setup, b, accum_steps, flow_source, n_steps=2)
+    _, out, _ = _port_steps(setup, b, accum_steps, flow_source, n_steps=2)
     for i in range(2):
         np.testing.assert_allclose(out[i], ref[i], rtol=1e-4, atol=0)
+
+
+def test_augmented_real_data_mf_step_draws_as_the_jax_step(setup):
+    """The MF step as the worker runs it on real data: device augmentation
+    on and the SGM warmup term, nothing injected, the JAX state's key
+    (key(1)) in both. One step against the JAX step run op by op (the MF
+    tests' rule: its jitted graph rounds the geometry otherwise): the 5
+    components within rtol 1e-4 and the next key's words equal."""
+    b = _batch(setup[0], 1)
+    rng = np.random.RandomState(3)
+    sgm = b.disp_gt + rng.normal(0, 0.5, b.disp_gt.shape)
+    sgm[rng.rand(*sgm.shape) < 0.2] = 0.0
+    b = b._replace(sgm_disp=np.maximum(sgm, 0).astype(np.float32) * 4)
+    kw = dict(augment=True, data_type="real")
+    states, ref = _jax_steps(setup, b, n_steps=1, **kw)
+    _, out, key = _port_steps(setup, b, n_steps=1, seed=1, **kw)
+    assert out[0].shape == (5,) and out[0][4] > 0
+    np.testing.assert_allclose(out[0], ref[0], rtol=1e-4, atol=0)
+    assert key == np.asarray(jax.random.key_data(states[1].rng)).tolist()
 
 
 def test_track_server_matches_jax_server():

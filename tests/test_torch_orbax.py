@@ -44,11 +44,11 @@ from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
 from depthinspace_tpu_torch.train.checkpoint import (StateCheckpointer,
                                                      load_net_params)
 from depthinspace_tpu_torch.train.orbax_state import (OrbaxStep,
-                                                      generator_seed,
                                                       is_orbax_step)
 from depthinspace_tpu_torch.train.multi_frame import MultiFrameWorker
 from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
 from depthinspace_tpu_torch.utils.ocdbt import OcdbtStore
+from depthinspace_tpu_torch.utils import jrandom
 
 FIXTURE = Path(__file__).parent / "data" / "orbax_fixture"
 
@@ -65,7 +65,7 @@ def _two_torch_threads():
 def dispnet_params():
     """The JAX DispNet's variables (full width) from the port's seeded init
     (flax's initializers run op by op here take seconds longer)."""
-    m = init_dispnet_(DispNet(), torch.Generator().manual_seed(0))
+    m = init_dispnet_(DispNet(), jrandom.key(0))
     return jax.tree.map(jnp.asarray,
                         flax_tree_from_dispnet_state_dict(m.state_dict()))
 
@@ -302,12 +302,13 @@ def test_committed_fixture_restores_bit_for_bit():
     assert dict(zip(want["names"].tolist(), want["crc32"].tolist())) == got
     opt = state.optimizer.state_dict()["state"]
     assert float(opt[0]["step"]) == float(want["count"])
-    assert state.generator.initial_seed() == generator_seed(want["rng_data"])
+    assert state.rng == jrandom.wrap_key_data(want["rng_data"])
 
 
 def _jax_sf(params, settings, batch, TL, n_steps):
     model = JaxDispNet(max_disp=128.0)
-    ctx = jax_objective.make_loss_context(settings, track_length=TL)
+    ctx = jax_objective.make_loss_context(settings, track_length=TL,
+                                          augment=True)
     opt = optax.adam(1e-4)
     train_step, _, consts = _make_step_fns(model, ctx, opt, "single_frame")
     step = jax.jit(train_step)
@@ -323,14 +324,16 @@ def _jax_sf(params, settings, batch, TL, n_steps):
 
 def test_resumed_step_matches_the_jax_step_and_the_worker_continues(
         tmp_path, dispnet_params):
-    """A JAX DIS-SF run (32x24, tl 4, bs 2, Adam 1e-4, from
-    dispnet_params): 2 jitted steps, saved by the JAX StateCheckpointer as
-    its worker saves epoch 0. The port
-    restores it (the weights equal the JAX ones bit for bit) and takes 2
-    steps: their components equal the JAX third and fourth steps' within
-    rtol 1e-4, the limit of tests/test_torch_train.py (measured 2.1e-6 and
-    1.3e-6; the fourth step follows Adam's update from the restored moments
-    and count: from a fresh Adam it was 3.4e-2 off). Then SingleFrameWorker
+    """A JAX DIS-SF run (32x24, tl 4, bs 2, Adam 1e-4, device
+    augmentation, from dispnet_params): 2 jitted steps, saved by the JAX
+    StateCheckpointer as its worker saves epoch 0. The port restores it
+    (the weights equal the JAX ones bit for bit, the key is the JAX
+    state's) and takes 2 steps: they draw the JAX third and fourth steps'
+    augmentation, so their components equal the JAX steps' within rtol
+    1e-4, the limit of tests/test_torch_train.py, and the port's key after
+    them is the JAX state's (the fourth step follows Adam's update from the
+    restored moments and count: from a fresh Adam it was 3.4e-2 off,
+    without augmentation). Then SingleFrameWorker
     --cmd resume on that experiment directory trains epoch 1: metrics.json
     continues at epoch 1 beside the JAX run's epoch 0, the orbax epoch
     stays and the port's state/1/state.pt restores."""
@@ -352,16 +355,18 @@ def test_resumed_step_matches_the_jax_step_and_the_worker_continues(
     state = TrainState.create(net, 1e-4, seed=0, device="cpu")
     _, epoch, min_err = StateCheckpointer(exp).restore(state)
     assert (epoch, min_err, state.step) == (0, {"simple": 0.0}, 2)
+    words = lambda st: jrandom.wrap_key_data(jax.random.key_data(st.rng))
+    assert state.rng == words(states[2])
     p2 = dispnet_state_dict_from_flax(jax.tree.map(np.asarray,
                                                    states[2].params))
     assert all(torch.equal(v, p2[k]) for k, v in net.state_dict().items())
-    step = make_sf_train_step(net, make_loss_context(settings, TL,
-                                                     device="cpu"), state)
+    step = make_sf_train_step(net, make_loss_context(
+        settings, TL, device="cpu", augment=True), state)
     tb = batch_to_torch(batch, "cpu")
     for i in (2, 3):
         np.testing.assert_allclose(step(tb).numpy(), comps[i], rtol=1e-4,
                                    atol=0)
-    assert state.step == 4
+    assert state.step == 4 and state.rng == words(states[4])
 
     d = tmp_path / "ds"
     generate_dataset(d, n_samples=4, imsize=(H, W), seed=3)

@@ -149,9 +149,10 @@ def _child_step(spec: dict) -> None:
     def step(local, grp, k):
         model = port_model(arch)
         model.load_state_dict(init)
-        state = TrainState.create(model, seed=0, device="cpu")
+        state = TrainState.create(model, seed=1, device="cpu")
         state.optimizer = torch.optim.SGD(model.parameters(), lr=LR)
-        ctx = make_loss_context(settings(), TL, device="cpu", group=grp)
+        ctx = make_loss_context(settings(), TL, device="cpu", group=grp,
+                                augment=spec["augment"])
         comps = make_step(model, ctx, state, accum_steps=k)(
             batch_to_torch(local, "cpu"))
         return comps.numpy(), model
@@ -181,10 +182,22 @@ def _child_worker(spec: dict) -> None:
     (``rank1_output_dir``), its clock read past the deadline (``late``)
     and its max_train_iter differ."""
     from depthinspace_tpu_torch.config import RunConfig
+    from depthinspace_tpu_torch.models import init as model_init
     from depthinspace_tpu_torch.parallel import init_multihost
     from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
     init_multihost(device="cpu", init_method=spec["init"],
                    rank=spec["rank"], world_size=spec["world"])
+    # the runs share one seed: the init (a full-width DispNet, seconds of
+    # CPU) is drawn once and loaded by each
+    drawn, flax_init = {}, model_init.flax_init
+
+    def flax_init_once(template, k, device=None):
+        key = (str(template), tuple(k), str(device))
+        if key not in drawn:
+            drawn[key] = flax_init(template, k, device)
+        return drawn[key]
+
+    model_init.flax_init = flax_init_once
     if spec["rank"] == 1 and spec.get("late"):
         time.time = lambda: 1e12
     for run in spec["runs"]:
@@ -244,10 +257,12 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-def _jax_mesh_step(arch: str, accum: int, batch: Batch):
+def _jax_mesh_step(arch: str, accum: int, batch: Batch,
+                   augment: bool = False):
     """The JAX step (SGD(LR)) on a 2-device
-    mesh, jitted for DIS-SF and op by op for DIS-MF. Returns (init params
-    as numpy, components, params after)."""
+    mesh, jitted for DIS-SF and op by op for DIS-MF, from key(1), with
+    device augmentation if ``augment``. Returns (init params as numpy,
+    components, params after)."""
     s = settings()
     if arch == "single_frame":
         model = JaxDispNet(max_disp=128.0)
@@ -269,7 +284,8 @@ def _jax_mesh_step(arch: str, accum: int, batch: Batch):
     state = jax.device_put(JaxTrainState.create(params, opt,
                                                 jax.random.key(1)),
                            jax_mesh.replicated(mesh))
-    step, _ = build_steps(model, jax_ctx(s, track_length=TL), opt, arch,
+    step, _ = build_steps(model, jax_ctx(s, track_length=TL,
+                                         augment=augment), opt, arch,
                           mesh, accum_steps=accum)
     with (jax.disable_jit() if arch == "multi_frame"
           else contextlib.nullcontext()):
@@ -289,21 +305,24 @@ def _misses(a, b) -> bool:
     return not np.allclose(a, b, rtol=RTOL_C, atol=ATOL_C)
 
 
-def check_two_process_step(tmp_path, arch: str, accum: int, bs: int = BS):
+def check_two_process_step(tmp_path, arch: str, accum: int, bs: int = BS,
+                           augment: bool = False):
     """Two gloo ranks (bs/2 samples each) take one step: their parameters
     are bitwise equal, and components and parameters agree with the JAX
-    2-device mesh step within tests/test_parallel.py's tolerances. The
+    2-device mesh step within tests/test_parallel.py's tolerances. With
+    ``augment`` both sides augment on the device from key(1): each rank
+    draws its frames' elements of the JAX step's global draws. The
     wrong reductions miss: with accum_steps=1 the mean of the ranks' own
     ratios, with accum_steps=2 each rank chunking its own block. The
     ranks' device histograms sum to one process's."""
     batch = make_batch(arch, bs)
-    init_np, c_ref, p_ref = _jax_mesh_step(arch, accum, batch)
+    init_np, c_ref, p_ref = _jax_mesh_step(arch, accum, batch, augment)
     np.savez(tmp_path / "batch.npz", **{k: v for k, v in
                                        batch._asdict().items()
                                        if v is not None})
     torch.save(_to_port(arch, init_np), tmp_path / "init.pt")
     outs = [torch.load(p, weights_only=False) for p in run_ranks(
-        tmp_path, "step", arch=arch, accum=accum,
+        tmp_path, "step", arch=arch, accum=accum, augment=augment,
         batch=str(tmp_path / "batch.npz"),
         weights=str(tmp_path / "init.pt"))]
     ref = _to_port(arch, p_ref)
@@ -330,7 +349,8 @@ def check_two_process_step(tmp_path, arch: str, accum: int, bs: int = BS):
 
 @pytest.mark.parametrize("accum", [1, 2])
 def test_two_process_sf_step_matches_the_jax_mesh_step(tmp_path, accum):
-    check_two_process_step(tmp_path, "single_frame", accum)
+    """The SF step as the workers run it, augmented on the device."""
+    check_two_process_step(tmp_path, "single_frame", accum, augment=True)
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -420,7 +440,8 @@ def test_worker_two_ranks_equal_one_process(fixture_dir, tmp_path):
     padded batch's loss counts its repeated samples); only rank 0 writes
     (rank 1 is given another output directory, which stays empty); rank
     1's clock past the deadline and its own max_train_iter change
-    nothing. Then with device augmentation (a generator per rank) and the
+    nothing. Then with device augmentation (each rank its share of the
+    global draws) and the
     device metric: a resume in 2 ranks equals the uninterrupted 2-rank
     run."""
     one = tmp_path / "one"          # (no checkpoints: ~1 GB a run)

@@ -47,6 +47,7 @@ from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
                                           make_sf_train_step)
 from depthinspace_tpu_torch.train.checkpoint import save_net_params
 from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
+from depthinspace_tpu_torch.utils import jrandom
 
 H, W = 64, 56
 REPO = Path(__file__).resolve().parents[1]
@@ -92,7 +93,7 @@ def _presave(d, arch, model, *argv):
 def test_stage1_sf_presave(pipeline_dir):
     (pipeline_dir / "out" / "single_frame").mkdir(parents=True)
     net = init_dispnet_(DispNet(max_disp=128.0),
-                        torch.Generator().manual_seed(0))
+                        jrandom.key(0))
     _presave(pipeline_dir, "single_frame", net)
 
 
@@ -103,7 +104,7 @@ def test_stage2_mf_train_step_and_presave(pipeline_dir):
     settings = load_settings(pipeline_dir / "settings.pkl")
     model = init_fusenet_(FuseNet((H, W), settings.K, 4, block_num=1,
                                   channels=8),
-                          torch.Generator().manual_seed(1))
+                          jrandom.key(1))
     state = TrainState.create(model, 1e-4, seed=0, device="cpu")
     step = make_mf_train_step(model, make_loss_context(settings, 4,
                                                        device="cpu"), state)
@@ -112,7 +113,7 @@ def test_stage2_mf_train_step_and_presave(pipeline_dir):
 
     (pipeline_dir / "out" / "multi_frame").mkdir(parents=True)
     full = init_fusenet_(FuseNet((H, W), settings.K, 4),
-                         torch.Generator().manual_seed(2))
+                         jrandom.key(2))
     _presave(pipeline_dir, "multi_frame", full, "--flow_source", "file")
 
 
@@ -126,7 +127,7 @@ def test_stage3_ftsf_train_step_matches_jax(pipeline_dir):
     assert batch.pseudo_gt is not None
     settings = load_settings(pipeline_dir / "settings.pkl")
     net = init_dispnet_(DispNet(max_disp=128.0),
-                        torch.Generator().manual_seed(3))
+                        jrandom.key(3))
     params = jax.tree.map(jnp.asarray,
                           flax_tree_from_dispnet_state_dict(net.state_dict()))
 

@@ -146,6 +146,7 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
             importlib.import_module(mod.name)
         mark("imports")
         from depthinspace_tpu_torch.config import RunConfig
+        from depthinspace_tpu_torch.utils import jrandom
         from depthinspace_tpu_torch.data import (SyntheticSource,
                                                  batch_to_torch, make_settings,
                                                  make_track_batch)
@@ -159,7 +160,7 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
             SingleFrameWorker)
         s = make_settings(32, 24)
         b = make_track_batch(s, tl=4, bs=1, seed=0, disp_range=(2.0, 8.0))
-        net = init_dispnet_(DispNet(), torch.Generator().manual_seed(0)).eval()
+        net = init_dispnet_(DispNet(), jrandom.key(0)).eval()
         ctx = make_loss_context(s, 4, device="cpu")
         _, comps = make_sf_eval_step(net, ctx)(batch_to_torch(b, "cpu"))
         assert comps.shape == (6,) and bool(torch.isfinite(comps).all())
@@ -255,7 +256,7 @@ def test_port_runs_without_jax_flax_h5py_cv2(tmp_path):
                               primary_noise=0.5)
         mf = init_fusenet_(FuseNet((32, 24), s.K, 4, block_num=1,
                                    channels=8),
-                           torch.Generator().manual_seed(0))
+                           jrandom.key(0))
         mstate = TrainState.create(mf, device="cpu")
         comps = make_mf_train_step(mf, ctx, mstate)(batch_to_torch(mb, "cpu"))
         assert mstate.step == 1 and comps.shape == (4,)

@@ -131,6 +131,82 @@ def test_train_step_accum2_matches_jax_accum2(setup):
                                    atol=0)
 
 
+def _real_batch(batch):
+    """The batch with SGM disparities (x4: some above the loss's validity
+    threshold of 30 px; a fifth of them zeroed)."""
+    rng = np.random.RandomState(2)
+    sgm = batch.disp_gt + rng.normal(0, 0.5, batch.disp_gt.shape)
+    sgm[rng.rand(*sgm.shape) < 0.2] = 0.0
+    return batch._replace(sgm_disp=np.maximum(sgm, 0).astype(np.float32) * 4)
+
+
+def _keyed_steps(setup, batch, accum_steps, n_steps, jit, **kw):
+    """n_steps of the JAX step and of the port's from the same weights and
+    the same key (key(1)) with ``kw`` in both loss contexts: each step's
+    components, and the key each state holds after it."""
+    settings, model, params, params_np, _ = setup
+    ctx = jax_objective.make_loss_context(settings, track_length=TL, **kw)
+    opt = optax.adam(1e-4)
+    train_step, _, consts = _make_step_fns(model, ctx, opt, "single_frame",
+                                           accum_steps=accum_steps)
+    jstate = JaxTrainState.create(params, opt, jax.random.key(1))
+    net = DispNet()
+    net.load_state_dict(dispnet_state_dict_from_flax(params_np))
+    state = TrainState.create(net, 1e-4, seed=1, device="cpu")
+    step = make_sf_train_step(net, make_loss_context(
+        settings, TL, device="cpu", **kw), state, accum_steps=accum_steps)
+    jb, tb = JaxBatch(**batch._asdict()), batch_to_torch(batch, "cpu")
+    out = []
+    for _ in range(n_steps):
+        if jit:
+            jstate, want = jax.jit(train_step)(jstate, jb, jnp.asarray(0.0),
+                                               consts)
+        else:
+            with jax.disable_jit():
+                jstate, want = train_step(jstate, jb, jnp.asarray(0.0),
+                                          consts)
+        got = step(tb)
+        out.append((got.numpy(), np.asarray(want), list(state.rng),
+                    np.asarray(jax.random.key_data(jstate.rng)).tolist()))
+    return out
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_augmented_step_draws_as_the_jax_step(setup, accum_steps):
+    """The real training step: device augmentation on (the workers'
+    default), nothing injected, the same key in both states. Over 3 steps
+    the components equal the jitted JAX step's within rtol 1e-4 and the
+    next key's words are equal. accum_steps=2 folds each microbatch's
+    index into the step and augmentation keys, as in JAX."""
+    batch = setup[4]
+    for got, want, key, jkey in _keyed_steps(setup, batch, accum_steps, 3,
+                                             jit=True, augment=True):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+        assert key == jkey
+
+
+def test_augmented_step_matches_the_op_by_op_jax_step(setup):
+    """One augmented step against the JAX step run op by op
+    (jax.disable_jit): components within rtol 1e-4, the same next key."""
+    ((got, want, key, jkey),) = _keyed_steps(setup, setup[4], 1, 1,
+                                             jit=False, augment=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+    assert key == jkey
+
+
+def test_real_data_step_draws_the_jax_sgm_noise(setup):
+    """--data_type real, augmented: the 4 SGM-warmup terms' noise drawn
+    from the step key as JAX draws it (split(step key, 4), one normal a
+    scale), so the 10 components equal the jitted JAX step's within rtol
+    1e-4 over 2 steps, with the same keys."""
+    batch = _real_batch(setup[4])
+    for got, want, key, jkey in _keyed_steps(setup, batch, 1, 2, jit=True,
+                                             augment=True, data_type="real"):
+        assert got.shape == (10,) and (got[6:] > 0).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+        assert key == jkey
+
+
 def test_adam_matches_optax():
     """torch.optim.Adam as TrainState builds it against optax.adam(1e-4)
     over 6 steps of given gradients: within 2e-7, an ulp or two of weights

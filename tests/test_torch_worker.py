@@ -26,6 +26,7 @@ from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
                                           make_sf_train_step)
 from depthinspace_tpu_torch.train.checkpoint import StateCheckpointer
 from depthinspace_tpu_torch.train.single_frame import SingleFrameWorker
+from depthinspace_tpu_torch.utils import jrandom
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,7 +89,7 @@ def test_port_learns_on_the_fixture(tmp_path):
 def test_resume_equals_uninterrupted_run(tmp_path):
     """2 steps, save, restore into a fresh state, 1 step: the same
     components and weights, bit for bit, as 3 steps in one run (with device
-    augmentation on, so the step's generator must come back too)."""
+    augmentation on, so the step's key must come back too)."""
     settings = make_settings(32, 24)
     batch = batch_to_torch(make_track_batch(settings, tl=4, bs=1, seed=0,
                                             disp_range=(2.0, 8.0)), "cpu")
@@ -96,7 +97,7 @@ def test_resume_equals_uninterrupted_run(tmp_path):
                             aug_max_sp_noise=0.01)
 
     def fresh():
-        net = init_dispnet_(DispNet(), torch.Generator().manual_seed(0))
+        net = init_dispnet_(DispNet(), jrandom.key(0))
         state = TrainState.create(net, 1e-4, seed=7, device="cpu")
         return state, make_sf_train_step(net, ctx, state)
 
@@ -117,6 +118,23 @@ def test_resume_equals_uninterrupted_run(tmp_path):
     assert torch.equal(step2(batch), ref[2])
     for a, b in zip(ref_state.model.parameters(), state2.model.parameters()):
         assert torch.equal(a, b)
+    assert state2.rng == ref_state.rng
+
+
+def test_restoring_a_generator_state_raises(tmp_path):
+    """A state.pt of the port's older format (a torch.Generator state, no
+    rng_data) is refused with a clear error, not silently reseeded."""
+    state = TrainState.create(init_dispnet_(DispNet(), jrandom.key(0)),
+                              1e-4, device="cpu")
+    ck = StateCheckpointer(tmp_path)
+    ck.save(0, state, {"simple": 1.0})
+    path = tmp_path / "state" / "0" / "state.pt"
+    payload = torch.load(path, weights_only=False)
+    del payload["rng_data"]
+    payload["generator"] = torch.Generator().manual_seed(0).get_state()
+    torch.save(payload, path)
+    with pytest.raises(ValueError, match="torch generator state"):
+        ck.restore(state)
 
 
 def test_worker_trains_resumes_and_retests(tmp_path):
