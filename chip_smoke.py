@@ -9,7 +9,11 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            a CUDA card);
 2. build   the CUDA kernels of csrc/ with nvcc for sm_90a, one nvcc per
            source, all at once, and beside them the variant library
-           (kernels.VARIANT_FLAGS) that times K4 backward's parts;
+           (kernels.VARIANT_FLAGS) that times K3's and K4's backward against
+           their float-atomic versions and pass by pass; the whole run is
+           under the deterministic mode every entry point sets
+           (device.set_deterministic), switched off only around a library
+           yardstick and the settings compared with it;
 3. kernels each kernel (K1 census-SAD, K2 pattern warp, K3 flow warp, K4
            pair-indexed flow warp in bf16 and f32, K5 = K3's kernels through
            the warp_kernel.warp2d entry point, and their backward kernels)
@@ -20,19 +24,22 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            computes the same function where there is one (F.grid_sample and
            its backward; for K4 also index_select + grid_sample, since K4
            gathers its sources itself), and the kernel's bound; K3's
-           backward (the strip kernel) at the SF and MF train steps' calls
-           on their rigid flows and on a random one, K5's at the MF call,
-           each called twice for its run-to-run difference; K2 timed at
-           both shapes; K3's forward at each call of the main paths (C = 1
-           and 3 of the SF loss, C = 5 of the MF loss and of FuseNet's
-           geometry warp), with the path it takes; the kernels K4's
-           forward and backward take (vector or scalar), and K4's backward
-           split into its zeroing, scatter and cast, each timed alone; K1
-           and K1 bwd also at the train shape on an input with exact ties,
-           each called twice for the same bits;
+           backward (the strip kernel, fixed point) at the SF and MF train
+           steps' calls on their rigid flows and on a random one, K5's at
+           the MF call, each called 3 more times for the same bits and
+           timed beside the float-atomic kernel it replaced and pass by
+           pass (zeroing, largest |g|, scatter, writing); K2 timed at both
+           shapes; K3's forward at each call of the main paths (C = 1 and
+           3 of the SF loss, C = 5 of the MF loss and of FuseNet's geometry
+           warp), with the path it takes; the kernels K4's forward and
+           backward take (vector or scalar), K4's backward called 3 more
+           times for the same bits, timed beside the float-atomic
+           scatter and pass by pass; K1 and K1 bwd also at the train shape
+           on an input with exact ties, each called twice for the same
+           bits;
 4. serve   DisparityServer at full width (512x432) from a seeded init, a
            ragged 13-image request (8 + 5) served twice, bit for bit equal
-           (deterministic cuDNN algorithms, serve.CUDNN_FLAGS); maps/s on
+           (deterministic cuDNN algorithms, the deterministic mode); maps/s on
            those and on cuDNN's default algorithms (the forward before the
            repair), in turns, and the default ones' run-to-run difference;
            a device profile of one bucket on each;
@@ -48,12 +55,12 @@ Phases, one or more lines each; any failure raises and exits nonzero:
            ms/step, peak memory,
            the profiler's device time by kernel group, the loss falling within 30
            steps; the counters are zeroed before it and read after it: every
-           kernel, forward and backward, must have run on that path. Then
-           the step with accum_steps=2 and device augmentation;
+           kernel, forward and backward, must have run on that path.
+           Then the step with accum_steps=2 and device augmentation;
 8. train parity  one augmented train step at bs=1 on the card and on the
            CPU from the same weights and key (the same draws, csrc/
            threefry.cu against utils/jrandom.py): components and every
-           parameter's gradient;
+           parameter's gradient; two card steps bitwise equal;
 9. worker  SingleFrameWorker on in-memory synthetic samples at 512x432: one
            epoch, a resume that starts at epoch 1, a retest of epoch 0;
            its debug images (train_000_0000.png, test_000_0000.png) and
@@ -75,10 +82,11 @@ path; every kernel but K5 must run on it):
                Adam(1e-4), augmented on the device (10 threefry draws a
                step): ms/step, peak memory, the profiler's device time
                by kernel group, the loss falling, exactly 1/1 K1, 1/1 K2,
-               3/1 K3 and 8/8 K4 launches (forward/backward) per step; then
-               the step in f32 and with accum_steps = 2;
+               3/1 K3 and 8/8 K4 launches (forward/backward) per step;
+               then the step in f32 and with accum_steps = 2;
 13. mf parity  the MF eval step (bs = 1, f32) and one MF train step (bs = 1,
-               f32) on the card and on the CPU from the same weights;
+               f32) on the card and on the CPU from the same weights; two
+               card steps bitwise equal;
 14. mf worker  MultiFrameWorker on in-memory samples: one epoch, a resume at
                epoch 1, a retest of epoch 0;
 15. wire cache 8 synthetic samples with their stand-in primary written as
@@ -86,9 +94,11 @@ path; every kernel but K5 must run on it):
                build_wire_cache: the SF worker (rigid flow) and the MF
                worker (flow from the primary) train 3 steps and test from
                the cache, then retest epoch 0;
-16. drift      the SF and the MF train step 5 times from the same state and
-               batch, twice: the largest relative differences of the losses
-               and the weights (float atomics, cuDNN);
+16. repeat     the SF (f32), MF (bf16) and --flow_source net SF train
+               steps, augmented, 5 times from the same state and batch,
+               twice: losses and every weight bitwise equal; then 2 steps, a
+               save, a restore into a fresh state and 1 step equal to 3
+               steps bit for bit (components, weights, the step key);
 17. pipeline   the staged pipeline through the port's tools and workers on 8
                samples at 512x432 written as HDF5 and read back equal:
                presave_flow (rigid); the SF worker (flow.hdf5); presave_disp
@@ -152,7 +162,7 @@ path; every kernel but K5 must run on it):
                as the children) from phase 7's seeded init, against the
                world-1 step: the ranks' parameters bitwise equal,
                components within rtol 1e-4, the gradients within phase 8's
-               limits, beside two world-1 steps' own difference, and every
+               limits, two world-1 steps bitwise equal, and every
                SF kernel launched on each rank; (b) the same for DIS-MF
                (FuseNet 4 x 32, bf16, 4 tracks, flow rejected everywhere:
                no tie), the whole gradient within bf16's unit roundoff
@@ -272,12 +282,13 @@ TOL = {
     # of |.| <= 0.71 |g| / 81 in another order (g ~ N(0, 1) here)
     "census_sad_bwd": 1e-5,
     "xwarp_bwd": 0.0,
-    # float atomics: sums of 3+ contributions in a varying order
+    # the plain version sums in float32 in its order, the kernel exactly
+    # (fixed point) and rounds once
     "warp2d_bwd": 1e-5,
     # K4: K3's arithmetic in float32 with one rounding at the store (exact
-    # in both dtypes); the backward's atomics sum a source pixel's terms
-    # from its pairs in a varying order (f32: 1e-5 at |g| ~ 1; bf16: that
-    # float32 sum rounded once, one bf16 ulp either side: rtol 2^-6)
+    # in both dtypes); the backward as K3's, over a source pixel's terms
+    # from its pairs (f32: 1e-5 at |g| ~ 1; bf16: the exact sum rounded to
+    # float32 and once more, one bf16 ulp either side: rtol 2^-6)
     "warp2d_pairs_fwd": 0.0,
     "warp2d_pairs_bwd": 1e-5,
     # K5 runs K3's kernels
@@ -287,6 +298,9 @@ TOL = {
     "threefry": 0.0,
 }
 BF16_RTOL = 2.0 ** -6
+# timed calls of a backward's float-atomic version and of its passes alone
+# (phase 3's A/B; the kernels themselves take 25)
+PART_REPS = 9
 REPLACES = {
     "census_sad_fwd": "depthinspace_tpu/ops/pallas/census_kernel.py:116",
     "xwarp_fwd": "depthinspace_tpu/ops/pallas/warp_kernel.py:123",
@@ -439,18 +453,38 @@ def census_ties(es, ta, g, results) -> None:
 
 
 @contextmanager
-def default_cudnn_algorithms():
-    """The servers' forwards on cuDNN's default algorithms instead of the
-    deterministic ones (serve.CUDNN_FLAGS, read at each call): the forward
-    as it was before the servers fixed their algorithms (DispNet's
-    transposed convolutions back on conv_transpose2d)."""
-    from depthinspace_tpu_torch import serve
-    saved = serve.CUDNN_FLAGS
-    serve.CUDNN_FLAGS = dict(saved, deterministic=False)
+def deterministic_mode_off():
+    """torch's deterministic mode off inside (on again after): for the
+    yardsticks the port never calls (grid_sample's backward raises under
+    the mode) and for the settings from before the mode."""
+    import torch
+    torch.use_deterministic_algorithms(False)
     try:
         yield
     finally:
-        serve.CUDNN_FLAGS = saved
+        torch.use_deterministic_algorithms(True)
+
+
+@contextmanager
+def default_cudnn_algorithms():
+    """cuDNN's default algorithms (deterministic off, so DispNet's
+    transposed convolutions run as conv_transpose2d) and torch's
+    deterministic mode off inside: the servers' forward as it was before
+    they fixed their algorithms. The kernels stay the deterministic ones.
+    The program has no such switch."""
+    import torch
+    torch.backends.cudnn.deterministic = False
+    try:
+        with deterministic_mode_off():
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = True
+
+
+def library_ms(fn, **kw) -> float:
+    """cuda_ms of a library yardstick, outside the deterministic mode."""
+    with deterministic_mode_off():
+        return cuda_ms(fn, **kw)
 
 
 def serve_rates(call, n_items: int, reps: int = 5) -> dict:
@@ -492,7 +526,9 @@ T_START = time.perf_counter()
 def main() -> None:
     import torch
     import torch.nn.functional as F
-    from depthinspace_tpu_torch.device import require_cuda, set_full_f32
+    from depthinspace_tpu_torch.device import (require_cuda,
+                                               set_deterministic,
+                                               set_full_f32)
 
     # -- 1. probe ---------------------------------------------------------
     dev = require_cuda()
@@ -505,7 +541,10 @@ def main() -> None:
     print(f"[probe] {card}; torch {torch.__version__}; cuda "
           f"{torch.version.cuda}; nvcc: {nvcc}; python {sys.version.split()[0]}")
     print(smi)
+    # as every entry point sets them (device.resolve_device): the whole run
+    # is under the deterministic mode
     set_full_f32()
+    set_deterministic()
 
     # -- 2. build ---------------------------------------------------------
     # the library of the main paths, and beside it (in parallel) the one
@@ -725,8 +764,8 @@ def main() -> None:
            xwarp_bwd_plain(pattern, disp_t, g_t),
            cuda_ms(lambda: kernels.xwarp_bwd(pattern, disp_t, g_t)),
            cuda_ms(lambda: xwarp_bwd_plain(pattern, disp_t, g_t)),
-           cuda_ms(lambda: gs_bwd(g_t4, pat_t, grid_t, 0, 1, True,
-                                  [False, True])),
+           library_ms(lambda: gs_bwd(g_t4, pat_t, grid_t, 0, 1, True,
+                                     [False, True])),
            bound_ms(3 * 4 * px_t + 4 * H * W),
            f"pattern {tuple(pattern.shape)} disp,g {tuple(disp_t.shape)}")
     # the geometric loss's C=1 depth sample over the 12 directions x bs=8
@@ -737,43 +776,77 @@ def main() -> None:
                   warp2d_plain(img_t, f0_t),
                   f"C={img.shape[-1]} {tuple(img_t.shape)}")
     del img_t
+    vlib = kernels.variant_library()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def ab_k3_bwd(flow, g, grad, acc, atomic, parts=15):
+        """K3's backward through the variant library: the deterministic
+        call or one of its passes alone (parts: 1 zeroing, 2 largest |g|,
+        4 scatter, 8 writing grad), or the float-atomic strip kernel
+        (atomic = 1)."""
+        M_, h_, w_, C_ = g.shape
+        err = vlib.dis_ab_warp2d_bwd(
+            flow.data_ptr(), g.data_ptr(), grad.data_ptr(), acc.data_ptr(),
+            M_, h_, w_, C_, kernels.warp2d_bwd_path(C_, h_, w_,
+                                                    flow.data_ptr()),
+            kernels.fixed_bits(h_ * w_), atomic, parts, stream())
+        check(err == 0, f"dis_ab_warp2d_bwd: CUDA error {err}")
+
     def k3_bwd_call(name, warp, kernel, flow, label):
         """K3's (or K5's) backward, C = 1, on one call of a main path: the
-        gradient through the autograd path against the plain version,
-        the path the wrapper takes (the strip kernel), the kernel's, the
-        plain version's and grid_sample backward's times and the bound; a
-        second kernel call on the same input gives its run-to-run
-        difference (float atomics). One printed line."""
+        gradient through the autograd path against the plain version, three
+        more calls on the same input bitwise equal to it, the path the
+        wrapper takes (the strip kernel), the kernel's, its passes', the float-atomic kernel's
+        float-atomic kernel's (checked against the plain version first),
+        the plain version's and grid_sample backward's times and the bound.
+        One printed line."""
         M_ = flow.shape[0]
         g = torch.as_tensor(rng_b.randn(M_, H, W, 1).astype(np.float32),
                             device=dev)
         img0 = torch.zeros_like(g)
         out = bwd(lambda x: warp(x, flow), img0, g)
         ref = warp2d_bwd_plain(flow, g)
-        again = kernel(flow, g)
-        torch.cuda.synchronize()
+        repeat = all(torch.equal(kernel(flow, g), out) for _ in range(3))
         path = kernels.warp2d_bwd_path(1, H, W, flow.data_ptr())
         grid = grid_of(flow[..., 0] + u, flow[..., 1] + v)
         g_n, img_n = g.permute(0, 3, 1, 2), img0.permute(0, 3, 1, 2)
+        acc = kernels.fixed_scratch(g.numel(), dev)
+        old = torch.empty_like(g)
+        ab_k3_bwd(flow, g, old, acc, 1)
+        torch.cuda.synchronize()
+        atomic_err = float((old - ref).abs().max())
         # each input read once (flow, g), the output written once
         b = bound_ms(4 * M_ * H * W * (2 + 1 + 1))
         r = dict(max_abs_err=float((out - ref).abs().max()),
                  ms=cuda_ms(lambda: kernel(flow, g)),
                  plain_ms=cuda_ms(lambda: warp2d_bwd_plain(flow, g), reps=5),
-                 library_ms=cuda_ms(lambda: gs_bwd(g_n, img_n, grid, 0, 0,
-                                                   True, [True, False])),
+                 library_ms=library_ms(lambda: gs_bwd(
+                     g_n, img_n, grid, 0, 0, True, [True, False])),
                  bound_ms=b[0], bound_by=b[1],
                  path="strip kernel" if path else "first design",
-                 run_to_run=float((again - out).abs().max()))
+                 repeat_equal=repeat,
+                 atomic_ms=cuda_ms(lambda: ab_k3_bwd(flow, g, old, acc, 1),
+                                   reps=PART_REPS),
+                 atomic_max_abs_err=atomic_err,
+                 parts={k: cuda_ms(lambda p=p: ab_k3_bwd(flow, g, old, acc, 0,
+                                                         p), reps=PART_REPS)
+                        for k, p in (("zeroing", 1), ("largest |g|", 2),
+                                     ("scatter", 4), ("writing", 8))})
         print(f"[kernel] {name} flow {tuple(flow.shape)} g {tuple(g.shape)} "
-              f"({label}; {r['path']}): max|kernel-plain| "
-              f"{r['max_abs_err']:.3g} (tol {TOL[name]:g}); two calls differ "
-              f"by {r['run_to_run']:.3g}; kernel {r['ms']:.4f} ms plain "
+              f"({label}; {r['path']}, fixed point): max|kernel-plain| "
+              f"{r['max_abs_err']:.3g} (tol {TOL[name]:g}); 3 more calls "
+              f"bitwise equal: {repeat}; kernel {r['ms']:.4f} ms ("
+              + ", ".join(f"{k} {t:.4f}" for k, t in r["parts"].items())
+              + f" alone) against float atomics {r['atomic_ms']:.4f} "
+              f"ms (max|atomic-plain| {atomic_err:.3g}); plain "
               f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
               f"bound {b[0]:.4f} ms ({b[1]}; {b[0] / r['ms']:.0%} of it)")
         check(r["max_abs_err"] <= TOL[name] and bool(torch.isfinite(
             out).all()), f"{name} {label} disagrees with its plain version: "
               f"{r['max_abs_err']}")
+        check(atomic_err <= TOL[name], f"{name} {label}: the float-atomic kernel "
+              f"disagrees with the plain version: {atomic_err}")
+        check(repeat, f"{name} {label}: repeated calls differ")
         check(path == 1, f"{name} {label} did not take the strip kernel")
         return r
 
@@ -787,9 +860,8 @@ def main() -> None:
                                ("random +-4 px flow", f_rand))}
     head = k3b.pop("SF train step, rigid flow")
     results["warp2d_bwd"] = dict(
-        {k: v for k, v in head.items() if k not in ("path", "run_to_run")},
-        path=head["path"], run_to_run=head["run_to_run"],
-        calls={f"{k} {tuple(f_rand.shape[:3])}": r for k, r in k3b.items()})
+        head, calls={f"{k} {tuple(f_rand.shape[:3])}": r
+                     for k, r in k3b.items()})
     del f_rand
 
     # K4 at the DIS-MF train step's shapes: 4 tracks x 4 frames give S = 16
@@ -816,42 +888,66 @@ def main() -> None:
     rng_p = np.random.RandomState(SEED + 11)
     k4 = {}
     parts = {torch.bfloat16: {}, torch.float32: {}}
-    rerun = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    repeat = {torch.bfloat16: True, torch.float32: True}
     table_mf = kernels._src_table("warp2d_pairs_bwd", src_mf, S_mf,
                                   len(src_mf), dev)
 
-    def k4_bwd_parts(pf, g, S):
-        """The path K4's backward takes, and its zeroing, scatter and cast
-        timed each alone through the variant library's entry point (the
-        launch counts are the wrapper's and do not move)."""
+    def within_k4_bwd(grad, ref_g):
+        """K4 bwd's tolerance against its plain version: 1e-5 in f32; in
+        bf16 that plus one bf16 ulp either side (rtol 2^-6)."""
+        d = (grad.float() - ref_g.float()).abs()
+        lim = TOL["warp2d_pairs_bwd"]
+        if grad.dtype == torch.bfloat16:
+            lim = lim + BF16_RTOL * ref_g.float().abs()
+        return bool((d <= lim).all()), float(d.max())
+
+    def k4_bwd_ab(pf, g, S, ref_g):
+        """The path K4's backward takes; its passes (zeroing the counts,
+        counting, the scan, placing the records, the sums) timed as the
+        differences of the call cut after each (every cut starts from the
+        zeroing, so the counts stay valid; the sums alone repeat safely),
+        and the float-atomic vector scatter (zeroing, float4 atomics,
+        cast) whole, checked against the plain version first, through the
+        variant library's entry point (the launch counts are the wrapper's
+        and do not move)."""
         M_, h_, w_, C_ = g.shape
         bf16 = int(g.dtype == torch.bfloat16)
-        scratch = torch.zeros((S, h_, w_, C_), device=dev)
+        work = kernels.pairs_bwd_work(S, M_, h_, w_, dev)
+        if 2 * work.numel() < S * h_ * w_ * C_:    # float atomics' scratch
+            work = torch.empty((S * h_ * w_ * C_ + 1) // 2,
+                               dtype=torch.int64, device=dev)
         grad = torch.empty((S, h_, w_, C_), dtype=g.dtype, device=dev)
-        vector = kernels.pairs_bwd_path(C_, g.dtype, g.data_ptr(),
-                                        pf.data_ptr(), scratch.data_ptr())
-        check(vector, f"warp2d_pairs_bwd {g.dtype} took the scalar scatter "
-              "at the MF shapes")
-        lib = kernels.variant_library()
+        vector = kernels.pairs_bwd_path(C_, g.dtype, g.data_ptr())
+        check(vector, f"warp2d_pairs_bwd {g.dtype} took the scalar sum at "
+              "the MF shapes")
 
-        def run(part):
-            # the wrapper's vector scatter: 1 vector a thread, 8 pixels
-            err = lib.dis_ab_warp2d_pairs_bwd(
+        def run(atomic, part=31):
+            err = vlib.dis_ab_warp2d_pairs_bwd(
                 pf.data_ptr(), table_mf[0].data_ptr(), table_mf[1].data_ptr(),
-                g.data_ptr(), scratch.data_ptr(),
-                grad.data_ptr() if bf16 else None, S, M_, h_, w_, C_, bf16,
-                1, 8, part, torch.cuda.current_stream().cuda_stream)
-            check(err == 0, f"warp2d_pairs_bwd part {part}: CUDA error {err}")
+                g.data_ptr(), work.data_ptr(), grad.data_ptr(), S, M_, h_,
+                w_, C_, bf16, 1, atomic, part, stream())
+            check(err == 0, f"warp2d_pairs_bwd atomic {atomic} part {part}: "
+                  f"CUDA error {err}")
 
-        out = {"path": "vector, one 4-channel vector of 8 pixels a thread",
-               "zeroing": cuda_ms(lambda: run(1)),
-               "scatter": cuda_ms(lambda: run(2))}
-        if bf16:
-            out["cast"] = cuda_ms(lambda: run(4))
+        run(1)
+        old = grad if bf16 else work.view(torch.float32)[
+            :S * h_ * w_ * C_].view(grad.shape)
+        ok, atomic_err = within_k4_bwd(old, ref_g)
+        check(ok, f"warp2d_pairs_bwd {g.dtype}: the float-atomic kernel disagrees "
+              f"with the plain version: {atomic_err}")
+        out = {"path": "by destination, 4 channels a thread",
+               "atomic_ms": cuda_ms(lambda: run(1), reps=PART_REPS),
+               "atomic_max_abs_err": atomic_err}
+        cut = {p: cuda_ms(lambda p=p: run(0, p), reps=PART_REPS)
+               for p in (1, 3, 7, 15)}
+        out.update({"zeroing": cut[1], "count": cut[3] - cut[1],
+                    "scan": cut[7] - cut[3], "place": cut[15] - cut[7],
+                    "sum": cuda_ms(lambda: run(0, 16), reps=PART_REPS)})
         print(f"[kernel] warp2d_pairs_bwd {g.dtype} {h_}x{w_}x{C_}: "
-              + "; ".join(f"{k} {v:.4f} ms" if k != "path" else v
+              + "; ".join(f"{k} {v:.4g}" if k != "path" else v
                           for k, v in out.items()))
         return out
+
     for dt in (torch.bfloat16, torch.float32):
         elt = 2 if dt == torch.bfloat16 else 4
         # err, ms, plain, library, index_select + library
@@ -874,22 +970,21 @@ def main() -> None:
                   "at the MF shapes")
             grad = bwd(lambda x: flow_warp_pairs(x, pf, src_mf), feat, g)
             ref_g = warp2d_pairs_bwd_plain(pf, src_mf, g, S_mf)
-            # a second call on the same input: float atomics
-            rerun[dt] = max(rerun[dt], float((kernels.warp2d_pairs_bwd(
-                pf, src_mf, g, S_mf).float() - grad.float()).abs().max()))
-            split = k4_bwd_parts(pf, g, S_mf)
+            # three more calls on the same input, bitwise equal
+            repeat[dt] &= all(torch.equal(kernels.warp2d_pairs_bwd(
+                pf, src_mf, g, S_mf), grad) for _ in range(3))
+            check(repeat[dt], f"warp2d_pairs_bwd {dt}: repeated calls "
+                  "differ")
+            split = k4_bwd_ab(pf, g, S_mf, ref_g)
             parts[dt]["path"] = split.pop("path")
+            parts[dt]["atomic_max_abs_err"] = max(
+                parts[dt].get("atomic_max_abs_err", 0.0),
+                split.pop("atomic_max_abs_err"))
             for part, t in split.items():
                 parts[dt][part] = parts[dt].get(part, 0.0) + t
             torch.cuda.synchronize()
             err_f = float((out.float() - ref.float()).abs().max())
-            dg = (grad.float() - ref_g.float()).abs()
-            err_b = float(dg.max())
-            if dt == torch.bfloat16:
-                ok_b = bool((dg <= TOL["warp2d_pairs_bwd"]
-                             + BF16_RTOL * ref_g.float().abs()).all())
-            else:
-                ok_b = err_b <= TOL["warp2d_pairs_bwd"]
+            ok_b, err_b = within_k4_bwd(grad, ref_g)
             check(err_f <= TOL["warp2d_pairs_fwd"]
                   and bool(torch.isfinite(out).all()),
                   f"warp2d_pairs_fwd {dt} disagrees with its plain version: "
@@ -920,8 +1015,8 @@ def main() -> None:
                             pf, src_mf, g, S_mf)),
                         cuda_ms(lambda: warp2d_pairs_bwd_plain(
                             pf, src_mf, g, S_mf), reps=5),
-                        cuda_ms(lambda: gs_bwd(g_nchw, stacked, grid_p, 0, 0,
-                                               True, [True, False])))}
+                        library_ms(lambda: gs_bwd(g_nchw, stacked, grid_p, 0,
+                                                  0, True, [True, False])))}
             for k, e in (("fwd", err_f), ("bwd", err_b)):
                 acc[k][0] = max(acc[k][0], e)
                 for i, t in enumerate(times[k]):
@@ -955,10 +1050,10 @@ def main() -> None:
                 k4[(k, dt)].update(library_gather_ms=acc[k][4], path=k4_path)
                 lib += f", index_select + grid_sample {acc[k][4]:.4f} ms"
             else:
-                k4[(k, dt)].update(parts[dt], run_to_run=rerun[dt])
-                lib += (f"; two calls differ by {rerun[dt]:.3g}"
-                        f"; {parts[dt]['path']}; alone: " + ", ".join(
-                    f"{p_} {t:.4f} ms" for p_, t in parts[dt].items()
+                k4[(k, dt)].update(parts[dt], repeat_equal=repeat[dt])
+                lib += (f"; 3 more calls bitwise equal: {repeat[dt]}"
+                        f"; {parts[dt]['path']}; " + ", ".join(
+                    f"{p_} {t:.4g}" for p_, t in parts[dt].items()
                     if p_ != "path"))
             print(f"[kernel] warp2d_pairs_{k} {dt} (both scales): kernel "
                   f"{acc[k][1]:.4f} ms, {lib}, bound {b[0]:.4f} ms ({b[1]}; "
@@ -1036,7 +1131,7 @@ def main() -> None:
     check(out.min() >= 0.0 and out.max() <= 128.0,
           f"serve output outside [0, 128]: {out.min()} .. {out.max()}")
     # one request, one answer: the server's forward runs on deterministic
-    # cuDNN algorithms (serve.CUDNN_FLAGS)
+    # cuDNN algorithms (the deterministic mode, device.resolve_device)
     check(np.array_equal(server.infer(images), out),
           "SF serve: the same request served twice differs")
     diff = default_algorithms_diff(lambda: server.infer(images))
@@ -1204,7 +1299,8 @@ def main() -> None:
     # orders, and the census signs and geometric masks can flip where a value
     # sits within an ulp of a threshold; the deepest layers' gradients are
     # ~1e-5 of the heads' at this init and carry the largest relative error
-    # (two card runs differ by themselves: atomics, cuDNN's algorithms)
+    check(self_all == 0.0, f"two card steps from one state differ: "
+          f"{self_all}")
     check((rel_c[:5] <= 1e-3).all() and rel_c[5] <= 1e-2,
           f"card and CPU train components differ: {rel_c}")
     check(rel_all <= 1e-3 and rel_g[worst] <= 2e-2,
@@ -1261,7 +1357,7 @@ def main() -> None:
 
     mf_counts = mf_phases(settings, dev, smi, model, mf_np)
     wire_cache_phase(settings, dev)
-    drift_phase(settings, dev, tb_np, mf_np)
+    repeat_phase(settings, dev, tb_np, mf_np)
     staged_pipeline_phase(settings, dev, smi, then=lambda data, out:
                           learned_flow_phase(settings, dev, smi, model, tb_np,
                                              mf_np, data, out))
@@ -2378,8 +2474,7 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
                                                init_fusenet_)
     from depthinspace_tpu_torch.models.flownet import _correlation_nchw
     from depthinspace_tpu_torch.ops import kernels
-    from depthinspace_tpu_torch.serve import (CUDNN_FLAGS,
-                                              TrackDisparityServer,
+    from depthinspace_tpu_torch.serve import (TrackDisparityServer,
                                               lcn_input, mf_forward,
                                               sf_forward)
     from depthinspace_tpu_torch.data.wire import (decode_field, encode_unit,
@@ -2467,14 +2562,14 @@ def learned_flow_phase(settings, dev, smi, sf_model, sf_np, mf_np, data,
     # one request, one answer: on cuDNN's default algorithms DispNet's
     # transposed convolutions may sum in another order each call, and
     # FuseNet turns the primary's ulps into other neighbour choices; the
-    # server runs on the deterministic ones (serve.CUDNN_FLAGS)
+    # server runs on the deterministic ones (the deterministic mode)
     check(np.array_equal(srv.infer(*req), got),
           "serve with learned flow: the same request served twice differs")
     diff = default_algorithms_diff(lambda: srv.infer(*req))
     print(f"[flow serve] the same 4-track request twice: equal; on the "
           f"default cuDNN algorithms {diff}")
     # and equal to its composition, bit for bit, on the same algorithms
-    with torch.inference_mode(), torch.backends.cudnn.flags(**CUDNN_FLAGS):
+    with torch.inference_mode():
         # the server's arrays, strides included (a strided input can make
         # cuDNN pick another algorithm, and FuseNet turns ulps into choices)
         to = lambda v: torch.from_numpy(v).to(dev)
@@ -2764,56 +2859,92 @@ def threefry_phase(dev, smi, results) -> None:
     torch.cuda.empty_cache()
 
 
-def drift_phase(settings, dev, sf_np, mf_np) -> None:
-    """Phase 16: the SF train step (tl = 4, bs = 8, f32) and the MF train
-    step (4 tracks, bf16) run 5 times from the same weights, optimizer
-    state and batch, twice; the largest relative differences between the
-    two runs' losses and weights (float atomics in the backward kernels
-    and cuDNN's algorithms make them differ)."""
+def repeat_phase(settings, dev, sf_np, mf_np) -> None:
+    """Phase 16: one input, one result on the card. The SF train step (tl =
+    4, bs = 8, f32, file flow), the MF train step (4 tracks, bf16) and the
+    SF step with --flow_source net (output/flownet.msgpack), each augmented
+    on the device, run 5 times from the same weights, optimizer state, key
+    and batch, twice: every loss component and every weight must be
+    bitwise equal. Then 2 steps, a save (StateCheckpointer), a restore into
+    a fresh state and 1 step must equal the first run's 3 steps bit for
+    bit: the components, every weight and the step key."""
     import torch
     from depthinspace_tpu_torch.data import batch_to_torch
-    from depthinspace_tpu_torch.models import (DispNet, FuseNet,
-                                               init_dispnet_, init_fusenet_)
+    from depthinspace_tpu_torch.models import FuseNet, init_fusenet_
+    from depthinspace_tpu_torch.tools.train_flow import load_flow_params
     from depthinspace_tpu_torch.train import (TrainState, make_loss_context,
                                               make_mf_train_step,
                                               make_sf_train_step)
-    ctx = make_loss_context(settings, TL, device=dev)
+    from depthinspace_tpu_torch.train.checkpoint import StateCheckpointer
+    T0 = time.perf_counter()
+    ctx = make_loss_context(settings, TL, device=dev, augment=True)
+    net = load_flow_params(FLOWNET)[0].to(dev).eval()
+    ctx_net = make_loss_context(settings, TL, device=dev, augment=True,
+                                flow_source="net", flow_net=net)
     cases = (
         ("SF train step, tl=4 bs=8 f32", sf_np, make_sf_train_step,
-         lambda: _dispnet(_jkey(SEED + 3))),
+         lambda: _dispnet(_jkey(SEED + 3)), ctx),
         ("MF train step, 4 tracks bf16", mf_np, make_mf_train_step,
          lambda: init_fusenet_(FuseNet((H, W), settings.K, TL,
                                        compute_dtype=torch.bfloat16),
-                               _jkey(SEED + 5))))
-    for label, batch_np, make_step, make_model in cases:
+                               _jkey(SEED + 5)), ctx),
+        ("SF train step, --flow_source net", sf_np._replace(flow=None),
+         make_sf_train_step, lambda: _dispnet(_jkey(SEED + 3)), ctx_net))
+    for label, batch_np, make_step, make_model, c in cases:
+        t0 = time.perf_counter()
         batch = batch_to_torch(batch_np, dev)
-        runs = []
-        for _ in range(2):
+
+        def fresh():
             model = make_model()
             state = TrainState.create(model, 1e-4, seed=SEED, device=dev)
-            start = {k: p.detach().double().clone()
-                     for k, p in model.named_parameters()}
-            step = make_step(model, ctx, state)
-            losses = np.array([step(batch).cpu().numpy() for _ in range(5)])
-            runs.append((losses, {k: p.detach().double()
-                                  for k, p in model.named_parameters()},
-                         start))
+            return model, state, make_step(model, c, state)
+
+        def weights(model):
+            return [p.detach().clone() for p in model.parameters()]
+
+        runs = []
+        for _ in range(2):
+            model, state, step = fresh()
+            losses, after3 = [], None
+            for i in range(5):
+                losses.append(step(batch).cpu().numpy())
+                if i == 2:
+                    after3 = (weights(model), state.rng)
+            runs.append((np.array(losses), weights(model), after3))
             del model, state, step
-        (l0, p0, s0), (l1, p1, _) = runs
-        norm = torch.linalg.vector_norm
-        d_loss = float(np.max(np.abs(l1 - l0) / np.abs(l0)))
-        d_w = max(float(norm(p1[k] - p0[k]) / norm(p0[k])) for k in p0)
-        d_upd = max(float(norm(p1[k] - p0[k]) / norm(p0[k] - s0[k]))
-                    for k in p0 if float(norm(p0[k] - s0[k])) > 0)
-        print(f"[drift] {label}, 5 steps from the same state and batch, "
-              f"twice: largest relative difference of a loss component "
-              f"{d_loss:.3g}; of a parameter tensor {d_w:.3g} (relative "
-              f"L2), {d_upd:.3g} of its 5 steps' update; first step's "
-              f"components bitwise equal: {np.array_equal(l0[0], l1[0])}")
-        check(np.isfinite(l0).all() and np.isfinite(l1).all(),
-              f"{label}: drift runs not finite")
-        del batch, runs, p0, p1, s0
+        (l0, w0, (w3, rng3)), (l1, w1, _) = runs
+        runs_equal = np.array_equal(l0, l1) and all(
+            torch.equal(a, b) for a, b in zip(w0, w1))
+        d_loss = float(np.max(np.abs(l1 - l0)))
+        d_w = max(float((a - b).abs().max()) for a, b in zip(w0, w1))
+
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            model, state, step = fresh()
+            for _ in range(2):
+                step(batch)
+            StateCheckpointer(Path(tmp)).save(1, state, {"simple": 0.25})
+            del model, state, step
+            model, state, step = fresh()
+            _, epoch, _ = StateCheckpointer(Path(tmp)).restore(state)
+            comps = step(batch).cpu().numpy()
+            resumed = (epoch == 1 and state.step == 3
+                       and np.array_equal(comps, l0[2])
+                       and state.rng == rng3
+                       and all(torch.equal(a, b)
+                               for a, b in zip(weights(model), w3)))
+            del model, state, step
+        print(f"[repeat] {label}: 5 steps from one state, twice: losses and "
+              f"every weight bitwise equal: {runs_equal} (largest |diff| of "
+              f"a loss component {d_loss:.3g}, of a weight {d_w:.3g}); 2 "
+              f"steps + save + restore + 1 step equal to 3 steps bit for "
+              f"bit: {resumed}; {time.perf_counter() - t0:.1f} s")
+        check(np.isfinite(l0).all(), f"{label}: repeated runs not finite")
+        check(runs_equal, f"{label}: two runs from one state differ")
+        check(resumed, f"{label}: the resumed run differs from the "
+              "uninterrupted one")
+        del batch, runs, w0, w1, w3
         torch.cuda.empty_cache()
+    print(f"[repeat] phase 16 {time.perf_counter() - T0:.1f} s")
 
 
 def grad_diff(a: dict, b: dict) -> tuple[float, dict]:
@@ -2865,7 +2996,9 @@ def profile_step(step, batch, label: str, groups: dict) -> float:
 
 # kernel name fragments of each group, matched in this order
 GROUPS = {
-    "hand-written K1-K4": ("census_sad", "xwarp", "warp2d"),
+    "hand-written K1-K4": ("census_sad", "xwarp", "warp2d", "fixed_sum::",
+                           "pairs_bwd_", "scan_totals", "scan_blocks",
+                           "scan_starts"),
     "convolutions/GEMM": ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
                           "fft", "winograd", "sm90_", "cutlass"),
     "gather/scatter/index": ("index", "gather", "scatter"),
@@ -3097,6 +3230,8 @@ def mf_phases(settings, dev, smi, sf_model, mf_np) -> dict:
     check(rel_all <= 1e-3 and rel_g[worst] <= 2e-2,
           f"card and CPU MF gradients differ: all {rel_all}, {worst} "
           f"{rel_g[worst]}")
+    check(self_all == 0.0, f"two card MF steps from one state differ: "
+          f"{self_all}")
 
     # -- 14. mf worker: train, resume, retest -----------------------------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -3273,10 +3408,9 @@ def dp_child(spec: dict) -> None:
     must stay empty)."""
     import torch
     from depthinspace_tpu_torch.data import make_settings
-    from depthinspace_tpu_torch.device import set_full_f32
+    from depthinspace_tpu_torch.device import resolve_device
     from depthinspace_tpu_torch.parallel import default_group, init_multihost
-    dev = torch.device("cuda", 0)
-    set_full_f32()
+    dev = resolve_device("cuda:0")
     rank = spec["rank"]
     init_multihost(device=dev, backend="gloo", init_method=spec["init"],
                    rank=rank, world_size=spec["world"])
@@ -3391,6 +3525,9 @@ def data_parallel_phase(settings, dev, smi, sf_model, images, data: Path,
                   f"1 {ref['ms']:.1f}; medians of {DP_TIMED_STEPS}; the "
                   f"cost of gloo's host staging on one card, not a speed "
                   f"figure for NCCL across cards; {smi}")
+            check(s_all == 0.0 and max(s_t.values()) == 0.0,
+                  f"{label}: two world-1 steps from one state differ: "
+                  f"{s_all}")
             check(r0["digest"] == r1["digest"],
                   f"{label}: the ranks' parameters differ after the step")
             check(np.array_equal(r0["comps"], r1["comps"]),

@@ -34,12 +34,6 @@
 //     thread as float4s, and stores their two outputs as one float2 (a
 //     scalar tail where the call's pixel count is odd); one pixel a thread
 //     where flow or out is not 16-byte aligned.
-// Two variants lost to it at the main paths' shapes and are built only for
-// scripts/ab_torch_kernels.py (-DDIS_AB_VARIANTS): four pixels a thread at
-// C = 1 (3 % slower than two), and for C >= 2 the block's 256*C outputs, which
-// are contiguous, staged in shared memory and written back as 16-byte
-// stores (5 % slower at C = 3, level at C = 5: L2 merges the direct
-// stores, which do not bound the kernel).
 // It reaches 72-79 % of the byte bound at the main paths' shapes and beats
 // grid_sample at each of them. ops/kernels.py::warp2d_fwd_path chooses the
 // kernel by C and the pointers' alignment; the first design stays as the
@@ -51,9 +45,9 @@
 // scalar-prefetch ranges existed because gathers were slow there and are
 // not reproduced.
 
-#include <climits>
-
 #include <cuda_runtime.h>
+
+#include "round_fixed.cuh"
 
 namespace {
 
@@ -208,7 +202,7 @@ __device__ __forceinline__ void warp_pixels(const float* __restrict__ img,
 
 // The vector kernel: thread i of the call owns pixels [i*P, i*P + P) of
 // the flat (M*H*W) index, n pixels in all; C channels, P pixels a thread
-// for C = 1 (their outputs stored as one float2 or float4).
+// for C = 1 (their outputs stored as one float2).
 template <int C, int P>
 __global__ void __launch_bounds__(kThreads)
     warp2d_fwd_vec_kernel(const float* __restrict__ img,
@@ -225,10 +219,6 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (P == 2)
       *reinterpret_cast<float2*>(out + first) =
           make_float2(res[0][0], res[1][0]);
-  } else if (count == P && P == 4) {
-    if constexpr (P == 4)
-      *reinterpret_cast<float4*>(out + first) =
-          make_float4(res[0][0], res[1][0], res[2][0], res[3][0]);
   } else {
 #pragma unroll
     for (int k = 0; k < P; ++k)
@@ -256,9 +246,6 @@ int fwd_vec_c(const float* img, const float* flow, float* out, int n, int H,
   if (ppt == 1) return fwd_vec<C, 1>(img, flow, out, n, H, W, stream);
   if constexpr (C == 1) {
     if (ppt == 2) return fwd_vec<1, 2>(img, flow, out, n, H, W, stream);
-#ifdef DIS_AB_VARIANTS
-    if (ppt == 4) return fwd_vec<1, 4>(img, flow, out, n, H, W, stream);
-#endif
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -286,42 +273,213 @@ int fwd(const float* img, const float* flow, float* out, int M, int H, int W,
   }
 }
 
-#ifdef DIS_AB_VARIANTS
-// Built only for scripts/ab_torch_kernels.py (-DDIS_AB_VARIANTS), which
-// measured it against the direct stores: one pixel a thread, the block's
-// 256*C outputs, which are contiguous, staged in shared memory and written
-// back as 16-byte stores. Slower at C = 3, level at C = 5.
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    warp2d_fwd_staged_kernel(const float* __restrict__ img,
-                             const float* __restrict__ flow,
-                             float* __restrict__ out, int H, int W, int n) {
-  __shared__ __align__(16) float tile[kThreads * C];
-  const int first = blockIdx.x * kThreads + threadIdx.x;
-  if (first < n) {
-    float res[1][C];
-    warp_pixels<C, 1>(img, flow, H, W, first, 1, res);
-#pragma unroll
-    for (int c = 0; c < C; ++c) tile[threadIdx.x * C + c] = res[0][c];
-  }
-  __syncthreads();
-  const int start = blockIdx.x * kThreads;
-  const int nf = min(kThreads, n - start) * C;
-  float* o = out + (long long)start * C;
-  const int nv = nf / 4;
-  for (int i = threadIdx.x; i < nv; i += kThreads)
-    reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(tile)[i];
-  for (int i = 4 * nv + threadIdx.x; i < nf; i += kThreads) o[i] = tile[i];
+// Order-independent sums for the backward below: each contribution is added
+// as an integer, so the result has the same bits whatever order the threads
+// add in. The Pallas backward of depthinspace_tpu/ops/pallas/warp2d_v2.py
+// accumulates each band in a VMEM block that the grid revisits in a fixed
+// order, so the TPU gives one result for one input. On the card many blocks
+// add into one cell at once; float atomics would sum a cell's terms in
+// whatever order they arrive, and the rounding of a sum of three or more
+// terms depends on that order.
+//
+// The scheme (fixed point in two 64-bit words a cell):
+//   - one pass finds G, the largest finite |g| of the call (an integer
+//     atomicMax on the float's bits, which is order-independent), so that
+//     every term w * g (0 <= w <= 1) is below 2^eG, eG the exponent bound
+//     of G;
+//   - the caller bounds P, the terms any one cell can receive (a pixel
+//     adds to a cell at most once), by 2^c. Then every cell's sum is below
+//     2^(eG + c);
+//   - the unit is u = 2^(eG - 123 + 2c): a term t is the integer
+//     V = round(t / u) < 2^(123 - 2c), split as V = H * 2^k + L with
+//     0 <= L < 2^k, k = 61 - c. A cell adds the H of its terms into a
+//     signed 64-bit word (|sum| < 2^62 + 2^c) and the L into an unsigned one
+//     (sum < 2^61), both with 64-bit integer atomics (RED.ADD.64). The top
+//     three bits of the unsigned word flag NaN, +inf and -inf terms
+//     (atomicOr), so a non-finite g propagates as a float sum would;
+//   - a last pass forms H * 2^k + L as a 128-bit integer and rounds it
+//     times u once to float32 (round_fixed.cuh).
+// A term loses only what lies below u, at most 2^(2c - 122) of G: 2^-86 at
+// the main paths' shapes (c = 18), so each cell is its exact sum rounded
+// once to float32, however its terms' magnitudes spread, closer than a
+// float32 sum in any fixed order gets.
+//
+// What it costs on the H100: a cell is 16 bytes of scratch (zeroed, then
+// read once more by the last pass) in place of 4, a term two 64-bit integer
+// atomics in place of one float atomic (sm_90 has vector atomics for floats
+// only), and one read of g for G.
+
+namespace fixed_sum {
+
+constexpr unsigned long long kNaN = 1ull << 61;
+constexpr unsigned long long kPosInf = 1ull << 62;
+constexpr unsigned long long kNegInf = 1ull << 63;
+constexpr unsigned long long kLowBits = kNaN - 1;
+
+// The call's scale: u = 2^lg, a term's low part k bits.
+struct Scale {
+  int lg;
+  int k;
+};
+
+// From the bits of G (the largest finite |g|, 0 when there is none) and c.
+__device__ __forceinline__ Scale scale_of(unsigned gbits, int c) {
+  const int e = (int)(gbits >> 23);
+  const int eG = e == 0 ? -126 : e - 126;  // G < 2^eG
+  return Scale{eG - 123 + 2 * c, 61 - c};
 }
 
-template <int C>
-int fwd_staged(const float* img, const float* flow, float* out, int n, int H,
-               int W, cudaStream_t stream) {
-  warp2d_fwd_staged_kernel<C><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                                stream>>>(img, flow, out, H, W, n);
+// Adds the float t into the cell (lo, hi) at cell[0], cell[1].
+__device__ __forceinline__ void add(unsigned long long* cell, float t,
+                                    Scale s) {
+  const unsigned b = __float_as_uint(t);
+  const unsigned ex = (b >> 23) & 0xffu;
+  if (ex == 0xffu) {
+    atomicOr(cell, (b & 0x7fffffu) ? kNaN : (b >> 31) ? kNegInf : kPosInf);
+    return;
+  }
+  // t = m * 2^e exactly, |m| < 2^24
+  long long m = ex ? (long long)((b & 0x7fffffu) | 0x800000u)
+                   : (long long)(b & 0x7fffffu);
+  if (m == 0) return;
+  if (b >> 31) m = -m;
+  const int d = (ex ? (int)ex - 150 : -149) - s.lg;  // t / u = m * 2^d
+  long long hi;
+  unsigned long long lo;
+  const unsigned long long mask = (1ull << s.k) - 1;
+  if (d >= s.k) {
+    hi = (long long)((unsigned long long)m << (d - s.k));
+    lo = 0;
+  } else if (d >= 0) {
+    hi = m >> (s.k - d);  // floor
+    lo = ((unsigned long long)m << d) & mask;
+  } else {
+    const int sh = -d;  // round half up to an integer number of units
+    const long long r = sh > 62 ? 0 : (m + (1ll << (sh - 1))) >> sh;
+    hi = r < 0 ? -1 : 0;
+    lo = (unsigned long long)r & mask;
+  }
+  if (lo) atomicAdd(cell, lo);
+  if (hi) atomicAdd(cell + 1, (unsigned long long)hi);
+}
+
+// The cell's sum, rounded to float32.
+__device__ __forceinline__ float value(ulonglong2 cell, Scale s) {
+  const unsigned long long flags = cell.x & ~kLowBits;
+  if (flags) {
+    const bool nan = (flags & kNaN) || ((flags & kPosInf) && (flags & kNegInf));
+    return nan ? __int_as_float(0x7fc00000)
+               : (flags & kPosInf) ? __int_as_float(0x7f800000)
+                                   : __int_as_float(0xff800000);
+  }
+  const unsigned long long low = cell.x & kLowBits;
+  const long long hi = (long long)cell.y + (long long)(low >> s.k);
+  const unsigned long long lo = low & ((1ull << s.k) - 1);
+  // hi * 2^k + lo in 128-bit two's complement
+  const unsigned __int128 n =
+      ((unsigned __int128)(__int128)hi << s.k) + lo;
+  const bool neg = hi < 0;
+  return round_fixed(neg ? (unsigned __int128)0 - n : n, neg, s.lg);
+}
+
+// An adder of float terms into element i of a fixed-point scratch.
+struct Adder {
+  unsigned long long* acc;
+  Scale s;
+  __device__ __forceinline__ void operator()(long long i, float v) const {
+    add(acc + 2 * i, v, s);
+  }
+};
+
+// What a scatter kernel receives: the scratch, G's bits (written by the
+// absmax pass before it) and c; bind() reads the scale once a thread.
+struct Sink {
+  unsigned long long* acc;
+  const unsigned* gbits;
+  int c;
+  __device__ __forceinline__ Adder bind() const {
+    return Adder{acc, scale_of(*gbits, c)};
+  }
+};
+
+// |v|'s bits, or 0 for a non-finite v.
+__device__ __forceinline__ unsigned finite_abs(unsigned b) {
+  b &= 0x7fffffffu;
+  return b < 0x7f800000u ? b : 0u;
+}
+
+// G's bits into *out (zeroed before): the elements before the first 16-byte
+// boundary and after the last one alone, the rest as 16-byte loads.
+__global__ void __launch_bounds__(256)
+    absmax_kernel(const float* __restrict__ g, long long n, long long head,
+                  unsigned* __restrict__ out) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nv = (n - head) / 4;
+  unsigned m = 0;
+  const uint4* v = reinterpret_cast<const uint4*>(g + head);
+  for (long long i = tid; i < nv; i += stride) {
+    const uint4 w = __ldcs(v + i);
+    m = max(m, max(max(finite_abs(w.x), finite_abs(w.y)),
+                   max(finite_abs(w.z), finite_abs(w.w))));
+  }
+  for (long long i = tid; i < head; i += stride)
+    m = max(m, finite_abs(__float_as_uint(g[i])));
+  for (long long i = head + nv * 4 + tid; i < n; i += stride)
+    m = max(m, finite_abs(__float_as_uint(g[i])));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0 && m) atomicMax(out, m);
+}
+
+// Every element of out from its cell: out is written whole.
+__global__ void __launch_bounds__(256)
+    value_kernel(const ulonglong2* __restrict__ acc,
+                 const unsigned* __restrict__ gbits, int c,
+                 float* __restrict__ out, long long n) {
+  const Scale s = scale_of(*gbits, c);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = value(__ldcs(acc + i), s);
+}
+
+inline int blocks_for(long long items) {
+  const long long want = items / 256 + 1;
+  return (int)(want < 132 * 16 ? want : 132 * 16);
+}
+
+// The passes of one call on n cells of out (and of g), scratch acc: 2n + 2
+// words, 16-byte aligned (the n cells, then G's bits).
+inline int zero(unsigned long long* acc, long long n, cudaStream_t s) {
+  return (int)cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * (2 * n + 2),
+                              s);
+}
+
+inline unsigned* gbits_of(unsigned long long* acc, long long n) {
+  return reinterpret_cast<unsigned*>(acc + 2 * n);
+}
+
+int find_max(const float* g, unsigned long long* acc, long long n,
+             cudaStream_t s) {
+  if (n <= 0) return 0;
+  const long long mis = (long long)(reinterpret_cast<size_t>(g) & 15);
+  long long head = ((16 - mis) & 15) / 4;
+  if (head > n) head = n;
+  absmax_kernel<<<blocks_for((n - head) / 4), 256, 0, s>>>(
+      g, n, head, gbits_of(acc, n));
   return (int)cudaGetLastError();
 }
-#endif
+
+int write_out(const unsigned long long* acc, int c, float* out, long long n,
+              cudaStream_t s) {
+  if (n <= 0) return 0;
+  value_kernel<<<blocks_for(n), 256, 0, s>>>(
+      reinterpret_cast<const ulonglong2*>(acc),
+      reinterpret_cast<const unsigned*>(acc + 2 * n), c, out, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fixed_sum
 
 // Flow warp backward (kernels K3 bwd and K5 bwd), the adjoint to img only.
 //
@@ -334,52 +492,52 @@ int fwd_staged(const float* img, const float* flow, float* out, int n, int H,
 //   grad_img[corner c of p] += w_c(p) * g(p)   for each VALID corner c
 //
 // with the forward's weights and validity (taps_at: the same clamp before
-// the int conversion, no +-max_shift bound), into an output that the
-// launcher zeroes first. Any flow is right, NaN and huge ones included: a
-// corner outside the image adds nothing.
+// the int conversion, no +-max_shift bound). Any flow is right, NaN and
+// huge ones included: a corner outside the image adds nothing.
+//
+// One input gives one result: the terms are added as integers (fixed_sum,
+// above), so the order in which the threads add does not matter,
+// as the TPU kernel's fixed grid order makes its sums repeat. A call is
+// four passes: the fixed-point scratch (16 bytes a cell) is zeroed, one
+// pass finds the largest |g|, the scatter adds each term with two 64-bit
+// integer atomics, and the last pass writes every element of grad.
 //
 // What bounds it on the H100: bytes (flow 8, g 4 and the output 4 a pixel
-// at C = 1), and the float atomics that a scatter needs. The first design
-// (warp2d_bwd_kernel, below; the path for C > 8) runs one thread a pixel on
-// (128-pixel chunks of a row, rows, images) and adds each of its four
-// corners with a float atomicAdd into global memory: 4 L2 atomics a pixel
-// and channel. At (96, 512, 432, 1) it ran at 36 % of the byte bound.
-//
-// The strip kernel (warp2d_bwd_strip_kernel, the path for C = 1..8): a warp
-// takes 32 consecutive columns and each lane a strip of V = 4 rows, the
-// flow read as float2, C a template parameter. For the smooth flows of
-// the geometric losses most corners are shared: a pixel's bottom corners
-// are the top corners of the pixel below it, and its right corners the
-// left corners of its right neighbour. The kernel merges them in
-// registers, down each strip and then across lanes with warp shuffles, so
-// that each cell is added once per warp and strip: ~1.3 atomics a pixel in
-// place of 4, issued as fire-and-forget RED on consecutive addresses.
+// at C = 1, read and written once) and the scatter's atomics. The scatter
+// is the strip kernel (the path for C = 1..8): a warp takes 32 consecutive
+// columns and each lane a strip of V = 4 rows, the flow read as float2, C a
+// template parameter. For the smooth flows of the geometric losses most
+// corners are shared: a pixel's bottom corners are the top corners of the
+// pixel below it, and its right corners the left corners of its right
+// neighbour. The kernel merges them in registers, down each strip and then
+// across lanes with warp shuffles, so that each cell is added once per warp
+// and strip: ~1.3 adds a pixel in place of 4. The merges sum in an order
+// fixed by the pixels' places, so they keep the result deterministic.
 // Cells that do not coincide (steps in the flow, random or huge flows) are
 // simply added apart, so any flow is right and only the speed depends on
-// its smoothness. On the H100 (scripts/ab_torch_kernels.py) its time at
-// (96, 512, 432, 1) splits into the zeroing (15 %), the loads (40 %; they
-// alone stream at ~3 TB/s), the arithmetic (21 %) and the atomics (26 %).
+// its smoothness. The first design (warp2d_bwd_kernel, the path for C > 8
+// or an unaligned flow) runs one thread a pixel and adds all four corners.
 //
-// A third design, a block's tile of pixels adding its corners into a
-// shared-memory window that is flushed once with coalesced (float4)
-// global atomics (warp2d_bwd_tile_kernel), lost even to the first design: sm_90a compiles a float atomicAdd on shared memory to a
-// compare-and-swap loop (ATOMS.CAST.SPIN), and the window's four shared
-// adds a pixel cost more than the global REDs they save, even with the
-// strips' corners merged first. It is built only with -DDIS_AB_VARIANTS.
-// Neither kernel is reproducible bit for bit: float atomics sum a cell's
-// contributions in an order that varies from run to run.
+// The strip kernel with float atomics, which this design replaced (one float
+// RED a merged corner into a zeroed float32 grad, its sums in a varying
+// order), is built only with -DDIS_AB_VARIANTS, to time beside this one. A
+// shared-memory window design lost to it earlier: sm_90a compiles a float
+// atomicAdd on shared memory to a compare-and-swap loop (ATOMS.CAST.SPIN).
+
+// The first design: one thread a pixel on (128-pixel chunks of a row, rows,
+// images), every valid corner of every channel added apart.
 __global__ void warp2d_bwd_kernel(const float* __restrict__ flow,
                                   const float* __restrict__ g,
-                                  float* __restrict__ grad, int H, int W,
-                                  int C) {
+                                  fixed_sum::Sink sink, int H, int W, int C) {
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
   if (u >= W) return;
   const int v = blockIdx.y;
   const long long m = blockIdx.z;
   const long long p = (m * H + v) * W + u;
   const Taps t = taps_at(flow[2 * p], flow[2 * p + 1], u, v, H, W);
+  const fixed_sum::Adder add = sink.bind();
 
-  float* base = grad + m * H * (long long)W * C;
+  const long long base = m * H * (long long)W;
   const float* gp = g + p * C;
   const int cx[4] = {t.cx0, t.cx1, t.cx0, t.cx1};
   const int cy[4] = {t.cy0, t.cy0, t.cy1, t.cy1};
@@ -388,8 +546,8 @@ __global__ void warp2d_bwd_kernel(const float* __restrict__ flow,
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       if (t.valid[q])
-        atomicAdd(base + ((long long)cy[q] * W + cx[q]) * C + c,
-                  __fmul_rn(gc, t.w[q]));
+        add((base + (long long)cy[q] * W + cx[q]) * C + c,
+            __fmul_rn(gc, t.w[q]));
   }
 }
 
@@ -489,66 +647,50 @@ __device__ __forceinline__ int corner_key(int x0, int y0, int W) {
   return y0 * (W + 4) + x0;
 }
 
-// Row i of strip s takes the left corners of the pixel to its right (key
-// nkey, corners nemit, values n0 and n2 of its corners 0 and 2) into its
-// right corners where they are one cell and both still add; returns the
-// corners the right pixel no longer adds (bits 0 and 2).
+// Each row of strip s (this lane) takes the left corners of the same row in
+// lane + 1 into its right corners where they are one cell and both still
+// add; lane + 1 then no longer adds them (lane 31 has no right neighbour in
+// the warp).
 template <int C, int V>
-__device__ __forceinline__ unsigned take_right(Strip<C, V>& s, int i, int W,
-                                               int nkey, unsigned nemit,
-                                               const float (&n0)[C],
-                                               const float (&n2)[C]) {
-  // bit 0: this pixel's corner 1 and the neighbour's corner 0; bit 2:
-  // corners 3 and 2
-  const unsigned m = nkey == corner_key(s.x0[i], s.y0[i], W) + 1
-                         ? s.emit[i] >> 1 & nemit & 5u
-                         : 0u;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (m & 1) s.val[i][1][c] = __fadd_rn(s.val[i][1][c], n0[c]);
-    if (m & 4) s.val[i][3][c] = __fadd_rn(s.val[i][3][c], n2[c]);
-  }
-  return m;
-}
-
-// The same across lanes: each row of `left` (this lane) takes the left
-// corners of the same row of `right` in lane + 1, which no longer adds
-// them (lane 31 has no right neighbour in the warp).
-template <int C, int V>
-__device__ __forceinline__ void merge_lanes(Strip<C, V>& left,
-                                            Strip<C, V>& right, int W) {
+__device__ __forceinline__ void merge_lanes(Strip<C, V>& s, int W) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int nkey = __shfl_down_sync(
-        0xffffffffu, corner_key(right.x0[i], right.y0[i], W), 1);
-    const unsigned nemit = __shfl_down_sync(0xffffffffu, right.emit[i], 1);
+        0xffffffffu, corner_key(s.x0[i], s.y0[i], W), 1);
+    const unsigned nemit = __shfl_down_sync(0xffffffffu, s.emit[i], 1);
     float n0[C], n2[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      n0[c] = __shfl_down_sync(0xffffffffu, right.val[i][0][c], 1);
-      n2[c] = __shfl_down_sync(0xffffffffu, right.val[i][2][c], 1);
+      n0[c] = __shfl_down_sync(0xffffffffu, s.val[i][0][c], 1);
+      n2[c] = __shfl_down_sync(0xffffffffu, s.val[i][2][c], 1);
     }
-    const unsigned m =
-        lane < 31 ? take_right(left, i, W, nkey, nemit, n0, n2) : 0u;
+    // bit 0: this pixel's corner 1 and the neighbour's corner 0; bit 2:
+    // corners 3 and 2
+    const unsigned m = lane < 31 && nkey == corner_key(s.x0[i], s.y0[i], W) + 1
+                           ? s.emit[i] >> 1 & nemit & 5u
+                           : 0u;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (m & 1) s.val[i][1][c] = __fadd_rn(s.val[i][1][c], n0[c]);
+      if (m & 4) s.val[i][3][c] = __fadd_rn(s.val[i][3][c], n2[c]);
+    }
     const unsigned taken = __shfl_up_sync(0xffffffffu, m, 1);
-    if (lane > 0) right.emit[i] &= ~taken;
+    if (lane > 0) s.emit[i] &= ~taken;
   }
 }
 
 // The strip kernel: a warp takes 32 consecutive columns, each lane a strip
 // of V rows, 8 warps stacked on 8 * V rows. The strips' corners are merged
 // in registers (down each strip, then across lanes by warp shuffles) and
-// added straight into the zeroed output with global atomics
-// (fire-and-forget RED, a row's corners on consecutive addresses across
-// the lanes). DRY is for timing its parts (scripts/ab_torch_kernels.py):
-// 1 skips the atomics, 2 also the arithmetic; a store that never happens
-// keeps the rest alive.
-template <int C, int V, int DRY = 0>
+// each remaining corner is added once through the sink (a row's corners on
+// consecutive cells across the lanes). Sink is fixed_sum::Sink; with
+// -DDIS_AB_VARIANTS also FloatSink, the float atomics it replaced.
+template <int C, int V, typename Sink>
 __global__ void __launch_bounds__(kBwdThreads)
     warp2d_bwd_strip_kernel(const float* __restrict__ flow,
-                            const float* __restrict__ g,
-                            float* __restrict__ grad, int H, int W) {
+                            const float* __restrict__ g, Sink sink, int H,
+                            int W) {
   const int u = blockIdx.x * 32 + (threadIdx.x & 31);
   const int v0 = (blockIdx.y * kBwdWarps + (threadIdx.x >> 5)) * V;
   const long long plane = (long long)blockIdx.z * H;
@@ -556,302 +698,96 @@ __global__ void __launch_bounds__(kBwdThreads)
   float gv[V][C];
   bool in[V];
   strip_load<C, V>(flow, g, plane, u, v0, H, W, f, gv, in);
-  float dry = 0.0f;
-  if constexpr (DRY == 2) {
+  Strip<C, V> s;
+  strip_taps<C, V>(f, gv, in, u, v0, H, W, s);
+  merge_lanes<C, V>(s, W);
+  const auto add = sink.bind();
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      dry += f[i].x + f[i].y;
+  for (int i = 0; i < V; ++i) {
+    if (!s.emit[i]) continue;
+    const long long base = ((plane + s.y0[i]) * W + s.x0[i]) * C;
 #pragma unroll
-      for (int c = 0; c < C; ++c) dry += gv[i][c];
-    }
-  } else {
-    Strip<C, V> s;
-    strip_taps<C, V>(f, gv, in, u, v0, H, W, s);
-    merge_lanes<C, V>(s, s, W);
+    for (int q = 0; q < 4; ++q)
+      if (s.emit[i] >> q & 1) {
+        const long long cell = base + ((q >> 1) * W + (q & 1)) * C;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if (!s.emit[i]) continue;
-      float* base = grad + ((plane + s.y0[i]) * W + s.x0[i]) * C;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (s.emit[i] >> q & 1) {
-          float* dst = base + ((q >> 1) * W + (q & 1)) * C;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if constexpr (DRY == 1)
-              dry += s.val[i][q][c] + (float)(dst - grad);
-            else
-              atomicAdd(dst + c, s.val[i][q][c]);
-          }
-        }
-    }
-  }
-  if (DRY && dry == -1.0e38f) grad[0] = dry;
-}
-
-#ifdef DIS_AB_VARIANTS
-// Built only for scripts/ab_torch_kernels.py (-DDIS_AB_VARIANTS): the
-// shared-memory window design, which lost to the first design and to the
-// strip kernel (the shared float atomics are compare-and-swap loops).
-constexpr int kBwdTileW = 64;
-
-// the window's cells: at most 4096, in the 48 KB of static shared memory
-// less the box's slots
-__host__ __device__ constexpr int bwd_cells(int C) {
-  return 12224 / C < 4096 ? 12224 / C : 4096;
-}
-// the window's columns are aligned to this many so that a row of C-channel
-// cells starts on 16 bytes (VEC)
-__host__ __device__ constexpr int bwd_align(int C) {
-  return C % 4 == 0 ? 1 : C % 2 == 0 ? 2 : 4;
-}
-// the widest margin (up to 16) by which the tile's own window, its cells
-// (tile + 1 corner), grows in every direction and still fits
-__host__ __device__ constexpr int bwd_margin(int rows, int C,
-                                              int align) {
-  int r = 16;
-  while (r > 0 && (rows + 1 + 2 * r) * (kBwdTileW + 1 + 2 * r +
-                                        2 * (align - 1)) > bwd_cells(C))
-    --r;
-  return r;
-}
-
-// The tile kernel: a block owns a tile of 8*RPW rows x 64 columns (lane l
-// of warp w: strips of RPW rows at columns l and l + 32), adds the strips'
-// merged corners that fall inside its window with shared-memory atomics
-// and the others with global ones, then flushes the window once.
-template <int C, int RPW, bool VEC>
-__global__ void __launch_bounds__(kBwdThreads)
-    warp2d_bwd_tile_kernel(const float* __restrict__ flow,
-                           const float* __restrict__ g,
-                           float* __restrict__ grad, int H, int W) {
-  constexpr int TH = kBwdWarps * RPW;          // tile rows
-  constexpr int kCells = bwd_cells(C);
-  constexpr int A = VEC ? bwd_align(C) : 1;
-  constexpr int R = bwd_margin(TH, C, A);
-  static_assert((TH + 1) * (kBwdTileW + 1 + 2 * (A - 1)) <= kCells,
-                "the tile's own window must fit in shared memory");
-  __shared__ __align__(16) float win[kCells * C];
-  __shared__ int wbox[kBwdWarps][4];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int u0 = blockIdx.x * kBwdTileW;
-  const int v0 = blockIdx.y * TH;
-  const int vs = v0 + RPW * warp;                       // the strips' row
-  const long long plane = (long long)blockIdx.z * H;   // m * H
-
-  float2 f[2][RPW];
-  float gv[2][RPW][C];
-  bool in[2][RPW];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    strip_load<C, RPW>(flow, g, plane, u0 + lane + 32 * j, vs, H, W, f[j],
-                       gv[j], in[j]);
-  Strip<C, RPW> s[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    strip_taps<C, RPW>(f[j], gv[j], in[j], u0 + lane + 32 * j, vs, H, W,
-                       s[j]);
-    merge_lanes<C, RPW>(s[j], s[j], W);
-  }
-
-  // the box of the corners the block adds (inclusive)
-  int bx0 = INT_MAX, by0 = INT_MAX, bx1 = INT_MIN, by1 = INT_MIN;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (s[j].emit[i] >> q & 1) {
-          const int x = s[j].x0[i] + (q & 1);
-          const int y = s[j].y0[i] + (q >> 1);
-          bx0 = min(bx0, x);
-          bx1 = max(bx1, x);
-          by0 = min(by0, y);
-          by1 = max(by1, y);
-        }
-  bx0 = __reduce_min_sync(0xffffffffu, bx0);
-  by0 = __reduce_min_sync(0xffffffffu, by0);
-  bx1 = __reduce_max_sync(0xffffffffu, bx1);
-  by1 = __reduce_max_sync(0xffffffffu, by1);
-  if (lane == 0) {
-    wbox[warp][0] = bx0;
-    wbox[warp][1] = by0;
-    wbox[warp][2] = bx1;
-    wbox[warp][3] = by1;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kBwdWarps; ++i) {
-    bx0 = min(bx0, wbox[i][0]);
-    by0 = min(by0, wbox[i][1]);
-    bx1 = max(bx1, wbox[i][2]);
-    by1 = max(by1, wbox[i][3]);
-  }
-
-  // the window [wx0, wx1) x [wy0, wy1): the box where it fits, else the
-  // tile grown by R; its columns aligned to A (W is a multiple of A)
-  int wx0 = 0, wx1 = 0, wy0 = 0, wy1 = 0;
-  if (bx0 <= bx1) {
-    wx0 = bx0 / A * A;
-    wx1 = (bx1 + A) / A * A;
-    wy0 = by0;
-    wy1 = by1 + 1;
-    if ((long long)(wx1 - wx0) * (wy1 - wy0) > kCells) {
-      wx0 = max(u0 - R, 0) / A * A;
-      wx1 = (min(u0 + kBwdTileW + 1 + R, W) + A - 1) / A * A;
-      wy0 = max(v0 - R, 0);
-      wy1 = min(v0 + TH + 1 + R, H);
-    }
-  }
-  const int ww = wx1 - wx0;
-  const int wh = wy1 - wy0;
-  const int rowlen = ww * C;
-  const int total = wh * rowlen;
-  for (int i = threadIdx.x; i < total; i += kBwdThreads) win[i] = 0.0f;
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (!(s[j].emit[i] >> q & 1)) continue;
-        const int x = s[j].x0[i] + (q & 1);
-        const int y = s[j].y0[i] + (q >> 1);
-        const int xi = x - wx0;
-        const int yi = y - wy0;
-        if ((unsigned)xi < (unsigned)ww && (unsigned)yi < (unsigned)wh) {
-          float* dst = win + (yi * ww + xi) * C;
-#pragma unroll
-          for (int c = 0; c < C; ++c) atomicAdd(dst + c, s[j].val[i][q][c]);
-        } else {
-          float* dst = grad + ((plane + y) * W + x) * C;
-#pragma unroll
-          for (int c = 0; c < C; ++c) atomicAdd(dst + c, s[j].val[i][q][c]);
-        }
+        for (int c = 0; c < C; ++c) add(cell + c, s.val[i][q][c]);
       }
-  __syncthreads();
-
-  if (total == 0) return;
-  float* out = grad + ((plane + wy0) * W + wx0) * C;
-  const long long pitch = (long long)W * C;
-  if constexpr (VEC) {
-    for (int i = 4 * threadIdx.x; i < total; i += 4 * kBwdThreads) {
-      const float4 v = *reinterpret_cast<const float4*>(win + i);
-      if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f) {
-        const int r = i / rowlen;
-        atomicAdd(reinterpret_cast<float4*>(out + r * pitch + (i - r * rowlen)),
-                  v);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < total; i += kBwdThreads) {
-      const float v = win[i];
-      if (v != 0.0f) {
-        const int r = i / rowlen;
-        atomicAdd(out + r * pitch + (i - r * rowlen), v);
-      }
-    }
   }
 }
-
-template <int C, int RPW>
-int bwd_tile(const float* flow, const float* g, float* grad, int M, int H,
-             int W, bool vec, cudaStream_t s) {
-  constexpr int TH = kBwdWarps * RPW;
-  const dim3 grid((W + kBwdTileW - 1) / kBwdTileW, (H + TH - 1) / TH, M);
-  if (vec)
-    warp2d_bwd_tile_kernel<C, RPW, true>
-        <<<grid, kBwdThreads, 0, s>>>(flow, g, grad, H, W);
-  else
-    warp2d_bwd_tile_kernel<C, RPW, false>
-        <<<grid, kBwdThreads, 0, s>>>(flow, g, grad, H, W);
-  return (int)cudaGetLastError();
-}
-
-#endif
 
 // the strip kernel's rows a lane
 constexpr int kBwdStripV = 4;
 
-template <int C, int V, int DRY = 0>
-int bwd_strip(const float* flow, const float* g, float* grad, int M, int H,
+template <int C, typename Sink>
+int bwd_strip(const float* flow, const float* g, Sink sink, int M, int H,
               int W, cudaStream_t s) {
-  const dim3 grid((W + 31) / 32, (H + kBwdWarps * V - 1) / (kBwdWarps * V),
+  const dim3 grid((W + 31) / 32,
+                  (H + kBwdWarps * kBwdStripV - 1) / (kBwdWarps * kBwdStripV),
                   M);
-  warp2d_bwd_strip_kernel<C, V, DRY>
-      <<<grid, kBwdThreads, 0, s>>>(flow, g, grad, H, W);
+  warp2d_bwd_strip_kernel<C, kBwdStripV, Sink>
+      <<<grid, kBwdThreads, 0, s>>>(flow, g, sink, H, W);
   return (int)cudaGetLastError();
 }
 
-template <int C>
-int bwd_c(const float* flow, const float* g, float* grad, int M, int H,
-          int W, int path, int rows, cudaStream_t s) {
-#ifdef DIS_AB_VARIANTS
-  if (path >= 2) {
-    if (C == 1 && rows == 1)
-      return bwd_tile<1, 1>(flow, g, grad, M, H, W, path == 2, s);
-    if (rows != 2) return (int)cudaErrorInvalidValue;
-    return bwd_tile<C, 2>(flow, g, grad, M, H, W, path == 2, s);
-  }
-  if (C == 1 && rows == 1) return bwd_strip<1, 1>(flow, g, grad, M, H, W, s);
-  if (C == 1 && rows == 2) return bwd_strip<1, 2>(flow, g, grad, M, H, W, s);
-  if (C == 1 && rows == 8) return bwd_strip<1, 8>(flow, g, grad, M, H, W, s);
-#endif
-  if (path != 1 || rows != kBwdStripV) return (int)cudaErrorInvalidValue;
-  return bwd_strip<C, kBwdStripV>(flow, g, grad, M, H, W, s);
-}
-
-// Zeroes grad (parts & 1), then scatters (parts & 2). path 0: the first
-// design (any C); 1: the strip kernel (C = 1..8) with kBwdStripV rows a
-// lane. Only with -DDIS_AB_VARIANTS: path 1 with rows = 1, 2 or 8 at C = 1;
-// path 2 and 3, the tile kernel with a float4 and a scalar flush, rows = 2
-// rows a warp (or 1 at C = 1); and the strip kernel's scatter without its
-// atomics (parts & 4) or also without its arithmetic (parts & 8).
-int bwd(const float* flow, const float* g, float* grad, int M, int H, int W,
-        int C, int path, int rows, int parts, cudaStream_t s) {
-#ifdef DIS_AB_VARIANTS
-  if (path < 0 || path > 3) return (int)cudaErrorInvalidValue;
-  if (path == 2 && W % bwd_align(C)) return (int)cudaErrorInvalidValue;
-#else
-  if (path < 0 || path > 1) return (int)cudaErrorInvalidValue;
-#endif
-  if (path > 0 && !(C >= 1 && C <= 8)) return (int)cudaErrorInvalidValue;
-  if (parts & 1) {
-    const cudaError_t err = cudaMemsetAsync(
-        grad, 0, sizeof(float) * (size_t)M * H * W * C, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (!(parts & 2)) return 0;
-#ifdef DIS_AB_VARIANTS
-  if (parts & 12) {
-    if (path != 1 || C != 1 || rows != kBwdStripV)
-      return (int)cudaErrorInvalidValue;
-    return parts & 8 ? bwd_strip<1, kBwdStripV, 2>(flow, g, grad, M, H, W, s)
-                     : bwd_strip<1, kBwdStripV, 1>(flow, g, grad, M, H, W, s);
-  }
-#endif
-  if (path == 0) {
-    const dim3 grid((W + 127) / 128, H, M);
-    warp2d_bwd_kernel<<<grid, 128, 0, s>>>(flow, g, grad, H, W, C);
-    return (int)cudaGetLastError();
-  }
+template <typename Sink>
+int scatter(const float* flow, const float* g, Sink sink, int M, int H,
+            int W, int C, cudaStream_t s) {
   switch (C) {
-    case 1: return bwd_c<1>(flow, g, grad, M, H, W, path, rows, s);
-    case 2: return bwd_c<2>(flow, g, grad, M, H, W, path, rows, s);
-    case 3: return bwd_c<3>(flow, g, grad, M, H, W, path, rows, s);
-    case 4: return bwd_c<4>(flow, g, grad, M, H, W, path, rows, s);
-    case 5: return bwd_c<5>(flow, g, grad, M, H, W, path, rows, s);
-    case 6: return bwd_c<6>(flow, g, grad, M, H, W, path, rows, s);
-    case 7: return bwd_c<7>(flow, g, grad, M, H, W, path, rows, s);
-    case 8: return bwd_c<8>(flow, g, grad, M, H, W, path, rows, s);
+    case 1: return bwd_strip<1>(flow, g, sink, M, H, W, s);
+    case 2: return bwd_strip<2>(flow, g, sink, M, H, W, s);
+    case 3: return bwd_strip<3>(flow, g, sink, M, H, W, s);
+    case 4: return bwd_strip<4>(flow, g, sink, M, H, W, s);
+    case 5: return bwd_strip<5>(flow, g, sink, M, H, W, s);
+    case 6: return bwd_strip<6>(flow, g, sink, M, H, W, s);
+    case 7: return bwd_strip<7>(flow, g, sink, M, H, W, s);
+    case 8: return bwd_strip<8>(flow, g, sink, M, H, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The passes of one call (fixed_sum): parts & 1 zeroes acc, & 2 finds
+// the largest |g|, & 4 scatters (path 0: the first design, any C; 1: the
+// strip kernel, C = 1..8), & 8 writes grad. c: log2 of a bound on the terms
+// a cell receives (H * W <= 2^c).
+int bwd(const float* flow, const float* g, float* grad,
+        unsigned long long* acc, int M, int H, int W, int C, int path, int c,
+        int parts, cudaStream_t s) {
+  if (path < 0 || path > 1 || (path == 1 && !(C >= 1 && C <= 8)) || c < 1 ||
+      c > 29)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)M * H * W * C;
+  int err = 0;
+  if (parts & 1) err = fixed_sum::zero(acc, n, s);
+  if (!err && (parts & 2)) err = fixed_sum::find_max(g, acc, n, s);
+  if (!err && (parts & 4)) {
+    const fixed_sum::Sink sink{acc, fixed_sum::gbits_of(acc, n), c};
+    if (path == 0) {
+      const dim3 grid((W + 127) / 128, H, M);
+      warp2d_bwd_kernel<<<grid, 128, 0, s>>>(flow, g, sink, H, W, C);
+      err = (int)cudaGetLastError();
+    } else {
+      err = scatter(flow, g, sink, M, H, W, C, s);
+    }
+  }
+  if (!err && (parts & 8)) err = fixed_sum::write_out(acc, c, grad, n, s);
+  return err;
+}
+
+#ifdef DIS_AB_VARIANTS
+// The strip kernel with float atomics, for the before-and-after timing only:
+// RED.ADD.F32 into a float32 grad zeroed first; not reproducible.
+struct FloatAdd {
+  float* grad;
+  __device__ __forceinline__ void operator()(long long i, float v) const {
+    atomicAdd(grad + i, v);
+  }
+};
+struct FloatSink {
+  float* grad;
+  __device__ __forceinline__ FloatAdd bind() const { return FloatAdd{grad}; }
+};
+#endif
 
 }  // namespace
 
@@ -869,54 +805,37 @@ extern "C" int dis_warp2d_fwd(const float* img, const float* flow, float* out,
   return fwd(img, flow, out, M, H, W, C, ppt, (cudaStream_t)stream);
 }
 
-#ifdef DIS_AB_VARIANTS
-// dis_warp2d_fwd, and the variants that lost: ppt = 4 (C = 1, flow and out
-// 16-byte aligned), and staged = 1 (C in 2..8, one pixel a thread, out
-// 16-byte aligned).
-extern "C" int dis_ab_warp2d_fwd(const float* img, const float* flow,
-                                 float* out, int M, int H, int W, int C,
-                                 int ppt, int staged, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (!staged) return fwd(img, flow, out, M, H, W, C, ppt, s);
-  const long long total = (long long)M * H * W;
-  if (ppt != 1 || total >= (1LL << 31) - 1024)
-    return (int)cudaErrorInvalidValue;
-  const int n = (int)total;
-  switch (C) {
-    case 2: return fwd_staged<2>(img, flow, out, n, H, W, s);
-    case 3: return fwd_staged<3>(img, flow, out, n, H, W, s);
-    case 4: return fwd_staged<4>(img, flow, out, n, H, W, s);
-    case 5: return fwd_staged<5>(img, flow, out, n, H, W, s);
-    case 6: return fwd_staged<6>(img, flow, out, n, H, W, s);
-    case 7: return fwd_staged<7>(img, flow, out, n, H, W, s);
-    case 8: return fwd_staged<8>(img, flow, out, n, H, W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-#endif
-
 // flow: contiguous (M, H, W, 2) float32, 8-byte aligned for path 1; g,
-// grad: contiguous (M, H, W, C) float32. Zeroes grad on the stream, then
-// scatters: path 0 the first design (any C), 1 the strip kernel (C in
-// 1..8). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a path or C that it does not take.
+// grad: contiguous (M, H, W, C) float32, grad written whole; acc: the
+// fixed-point scratch, 2 * M*H*W*C + 2 int64 words, 16-byte aligned; c:
+// ceil(log2(H * W)) in 1..29. Path 0 scatters with the first design (any
+// C), 1 with the strip kernel (C in 1..8). Returns the first CUDA error of
+// its launches, or cudaErrorInvalidValue for a path, C or c that it does
+// not take.
 extern "C" int dis_warp2d_bwd(const float* flow, const float* g, float* grad,
-                              int M, int H, int W, int C, int path,
-                              void* stream) {
-  return bwd(flow, g, grad, M, H, W, C, path, kBwdStripV, 3,
+                              void* acc, int M, int H, int W, int C, int path,
+                              int c, void* stream) {
+  return bwd(flow, g, grad, (unsigned long long*)acc, M, H, W, C, path, c, 15,
              (cudaStream_t)stream);
 }
 
 #ifdef DIS_AB_VARIANTS
-// dis_warp2d_bwd with the variants that lost and the parts given (see bwd):
-// path 2 and 3 (the tile kernel), rows, and parts (3: the whole call; 1:
-// the zeroing alone; 2: the scatter alone; 6: the strip kernel's scatter
-// without its atomics).
+// For the before-and-after timing (chip_smoke.py phase 3,
+// scripts/ab_torch_kernels.py), built with -DDIS_AB_VARIANTS only:
+// dis_warp2d_bwd with one part of the call alone (parts, as bwd takes them)
+// or, with atomic = 1, the strip kernel with float atomics (C in 1..8): grad
+// zeroed, then its float atomics (acc and c unused).
 extern "C" int dis_ab_warp2d_bwd(const float* flow, const float* g,
-                                 float* grad, int M, int H, int W, int C,
-                                 int path, int rows, int parts,
-                                 void* stream) {
-  return bwd(flow, g, grad, M, H, W, C, path, rows, parts,
-             (cudaStream_t)stream);
+                                 float* grad, void* acc, int M, int H, int W,
+                                 int C, int path, int c, int atomic,
+                                 int parts, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!atomic)
+    return bwd(flow, g, grad, (unsigned long long*)acc, M, H, W, C, path, c,
+               parts, s);
+  const cudaError_t err = cudaMemsetAsync(
+      grad, 0, sizeof(float) * (size_t)M * H * W * C, s);
+  if (err != cudaSuccess) return (int)err;
+  return scatter(flow, g, FloatSink{grad}, M, H, W, C, s);
 }
 #endif

@@ -54,48 +54,20 @@
 // known ahead (a 32-channel halo of +-16 px would not fit in shared memory
 // either); nothing is a matrix product, so tensor cores do not apply.
 //
-// The backward scatters w*g to the four valid corners of plane src[m] with
-// float atomics into a float32 (S, H, W, C) scratch that the launcher
-// zeroes on the stream; for bfloat16 a cast kernel then rounds the scratch
-// into the bf16 gradient, as the TPU kernel casts its f32 grad_pad. The
-// atomics make the bits of a sum of three or more contributions vary from
-// run to run. The TPU kernel's grid needed every source in the same number
-// of pairs; this one takes any table with 0 <= src[m] < S (the wrapper
-// checks it on the host).
-//
-// What bounds the backward on the H100: the atomics in L2. At the DIS-MF
-// shapes (S = 16, M = 48, C = 32, 256x216 + 128x108) one thread per
-// element (the first design, kept as the scalar path) makes ~425 M scalar
-// f32 atomics; each warp covers one corner's 32 channels, so its atomics
-// reach L2 as one 128-byte request, and bf16 (0.96 ms) ran slower than
-// f32 (0.87 ms) at 10-20 % of the byte bound. 16-byte vectors of g (8 bf16
-// or 4 f32 channels) a thread, each added with float4 atomics at the
-// thread's own channels, were slower still in bf16 (1.24 ms): a warp's
-// atomic then touched 16-byte pieces of 8 or 16 lines. The vector scatter:
-//   - a thread owns 4-channel vectors of g (one 16-byte float32 or 8-byte
-//     bfloat16 load), and the G = C / 4 threads of a pixel hold its
-//     channels in order, so each 16-byte vector atomic (sm_90, global
-//     memory) of the G threads covers a corner's whole 128-byte line at
-//     C = 32, and a warp's covers 4 pixels' corners;
-//   - a thread takes PX = 8 consecutive pixels of a row and sums in
-//     registers the corners that a pixel shares with its left neighbour
-//     (the same integer corner column, the usual case for a smooth flow),
-//     so PX pixels take 2*PX + 2 corner atomics instead of 4*PX;
-//   - the grid's pair axis walks the source-major `order`, so the 3 pairs
-//     that scatter into one 7 MB float32 plane run back to back while it
-//     sits in L2.
-// Taps and products stay those of the scalar kernel (w * g rounded to
-// nearest a channel). The scatter still takes ~80 % of the bf16 call; the
-// zeroing and the cast move 141 MB and 212 MB near the HBM rate. Two
-// vectors a thread (8-11 % slower) and 1, 2 or 4 pixels a thread (slower
-// the fewer) lost; they are built only with -DDIS_AB_VARIANTS, with an
-// entry point that runs one part of the call alone, for
-// scripts/ab_torch_kernels.py and chip_smoke.py to time. The wrapper takes
-// the scalar path for C not a multiple of 4, unaligned g or flow
+// The backward adds w*g to the four valid corners of plane src[m], and
+// takes any table with 0 <= src[m] < S (the wrapper checks it on the host;
+// the TPU kernel's grid needed every source in the same number of pairs).
+// One input gives one result, as the TPU kernel's fixed grid order makes
+// its sums repeat: each cell reads the list of terms it receives and sums
+// them as integers (the design is described above its kernels, below), so
+// no float atomic sums in a varying order. The wrapper takes the scalar sum
+// (one channel a thread) for C not a multiple of 4 or unaligned g
 // (kernels.pairs_bwd_path).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "round_fixed.cuh"
 
 namespace {
 
@@ -221,6 +193,9 @@ struct Vec<float> {
   __device__ static void store(float* p, const float (&f)[kN]) {
     *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
   }
+  __device__ static void store4(float* p, const float (&f)[4]) {
+    store(p, f);
+  }
 };
 
 template <>
@@ -243,6 +218,10 @@ struct Vec<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) =
         make_uint4(pack(f[0], f[1]), pack(f[2], f[3]), pack(f[4], f[5]),
                    pack(f[6], f[7]));
+  }
+  __device__ static void store4(__nv_bfloat16* p, const float (&f)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack(f[0], f[1]),
+                                              pack(f[2], f[3]));
   }
 };
 
@@ -315,28 +294,434 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T>
-__global__ void warp2d_pairs_bwd_kernel(const float* __restrict__ flow,
-                                        const int* __restrict__ src,
-                                        const T* __restrict__ g,
-                                        float* __restrict__ grad, int H,
-                                        int W, int C) {
-  Element x;
-  if (!element(H, W, C, x)) return;
-  const Taps t = taps(flow, x.p, x.u, x.v, H, W);
+constexpr int kThreads = 256;
 
-  float* base = grad + (long long)src[x.m] * H * (long long)W * C + x.c;
-  const float gc = load_f32(g + x.p * C + x.c);
-  if (t.vy0 && t.vx0)
-    atomicAdd(base + ((long long)t.y0 * W + t.x0) * C, __fmul_rn(gc, t.w00));
-  if (t.vy0 && t.vx1)
-    atomicAdd(base + ((long long)t.y0 * W + t.x1) * C, __fmul_rn(gc, t.w01));
-  if (t.vy1 && t.vx0)
-    atomicAdd(base + ((long long)t.y1 * W + t.x0) * C, __fmul_rn(gc, t.w10));
-  if (t.vy1 && t.vx1)
-    atomicAdd(base + ((long long)t.y1 * W + t.x1) * C, __fmul_rn(gc, t.w11));
+inline dim3 grid_for(int M, int H, int W, int C) {
+  return dim3((W * C + kThreads - 1) / kThreads, H, M);
 }
 
+template <typename T>
+int fwd_scalar(const void* feat, const float* flow, const int* src, void* out,
+               int M, int H, int W, int C, void* stream) {
+  warp2d_pairs_fwd_kernel<T>
+      <<<grid_for(M, H, W, C), kThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)feat, flow, src, (T*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VPT>
+int fwd_vec(const void* feat, const float* flow, const int* src,
+            const int* order, void* out, int M, int H, int W, int C,
+            void* stream) {
+  const int G = C / (Vec<T>::kN * VPT);
+  if (G < 1 || G > kThreads || G * Vec<T>::kN * VPT != C)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(G, kThreads / G);
+  const dim3 grid((H * W + block.y - 1) / block.y, M);
+  warp2d_pairs_fwd_vec_kernel<T, VPT>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (const T*)feat, flow, src, order, (T*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const void* feat, const float* flow, const int* src,
+        const int* order, void* out, int M, int H, int W, int C, int vpt,
+        void* stream) {
+  switch (vpt) {
+    case 0:
+      return fwd_scalar<T>(feat, flow, src, out, M, H, W, C, stream);
+    case 1:
+      return fwd_vec<T, 1>(feat, flow, src, order, out, M, H, W, C, stream);
+    case 2:
+      return fwd_vec<T, 2>(feat, flow, src, order, out, M, H, W, C, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward, summed by destination. Each cell of the (S, H, W, C)
+// gradient reads the list of terms it receives and sums them itself:
+//   1. count: a thread a pixel of the M pairs' planes adds one to the count
+//      of each valid corner's cell (32-bit integer atomics);
+//   2. scan: the counts' exclusive prefix sum, each cell's first record;
+//   3. place: each valid corner takes a slot in its cell's run (an integer
+//      atomic counting its cell down) and writes a record there: the
+//      pixel's flat index m * H * W + p and its weight;
+//   4. sum: G = C / V threads a cell, V channels a thread, read the cell's
+//      records twice: first the largest |w * g| of each channel (and
+//      whether a term is NaN or infinite), which sets the channel's unit
+//      2^lg = 2^(eG - 62 + ceil(log2 n)) for the cell's n terms, |t| <
+//      2^eG; then each term w * g (rounded to float32 as the plain version
+//      rounds the product) as an integer number of units into a 64-bit
+//      register, whose sum cannot overflow. Integer addition is
+//      associative, so the records' order, which the place pass's atomics
+//      leave to chance, does not matter. The sum is rounded once to float32
+//      (and that to bfloat16) and written: every element of grad, no
+//      zeroing and no cast pass.
+// A term keeps its bits down to 2^(c - 61) of its cell's largest term (c =
+// ceil(log2 n); 2^-59 for the 3-to-12 terms of the DIS-MF cells), far below
+// a float32 ulp of the sum.
+//
+// Why by destination: at C = 32 the records are shared by the channels, so
+// the passes that move them (count, place) do one atomic a corner, not C;
+// a fixed-point scatter (as K3 bwd, csrc/warp2d.cu) would add two
+// 64-bit atomics a corner and channel, and sm_90 has vector atomics for
+// floats only: at the DIS-MF shapes it took 3.73 ms in bfloat16 against the
+// float-atomic scatter's 0.54 ms on an H100 (chip_smoke.py phase 3), the L2
+// atomic units bounding it. What bounds this design on the H100: the sum pass's reads
+// of g, one row of C channels a record (64 bytes in bfloat16), gathered
+// by the records and read twice, mostly from L2 since a cell's records are
+// its neighbours' records' neighbours.
+
+// One pixel of the M pairs' planes: its corners' cells and weights.
+struct Corners {
+  long long cell[4];
+  float w[4];
+  bool valid[4];
+};
+
+__device__ __forceinline__ Corners corners(const float* __restrict__ flow,
+                                           const int* __restrict__ src,
+                                           long long i, int H, int W) {
+  const long long HW = (long long)H * W;
+  const long long m = i / HW;
+  const int p = (int)(i - m * HW);
+  const int v = p / W;
+  const int u = p - v * W;
+  const Taps t = taps_at(__ldg(flow + 2 * i), __ldg(flow + 2 * i + 1), u, v,
+                         H, W);
+  const long long plane = (long long)__ldg(src + m) * HW;
+  Corners k;
+  k.valid[0] = t.vy0 && t.vx0;
+  k.valid[1] = t.vy0 && t.vx1;
+  k.valid[2] = t.vy1 && t.vx0;
+  k.valid[3] = t.vy1 && t.vx1;
+  k.cell[0] = plane + (long long)t.y0 * W + t.x0;
+  k.cell[1] = plane + (long long)t.y0 * W + t.x1;
+  k.cell[2] = plane + (long long)t.y1 * W + t.x0;
+  k.cell[3] = plane + (long long)t.y1 * W + t.x1;
+  k.w[0] = t.w00;
+  k.w[1] = t.w01;
+  k.w[2] = t.w10;
+  k.w[3] = t.w11;
+  return k;
+}
+
+// Passes 1 (PLACE false: count) and 3 (PLACE true: place), a thread a pixel
+// of the n = M * H * W pixels.
+template <bool PLACE>
+__global__ void __launch_bounds__(256)
+    pairs_bwd_index_kernel(const float* __restrict__ flow,
+                           const int* __restrict__ src, int* count,
+                           const int* __restrict__ start,
+                           int2* __restrict__ recs, long long n, int H,
+                           int W) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  const Corners k = corners(flow, src, i, H, W);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!k.valid[q]) continue;
+    if constexpr (PLACE) {
+      const int slot = atomicSub(count + k.cell[q], 1) - 1;
+      recs[start[k.cell[q]] + slot] = make_int2((int)i, __float_as_int(k.w[q]));
+    } else {
+      atomicAdd(count + k.cell[q], 1);
+    }
+  }
+}
+
+constexpr int kScanItems = 4;                  // a thread's items
+constexpr int kScanBlock = 256 * kScanItems;   // a block's items
+
+// The exclusive prefix sum of v over the block's 256 threads, and the
+// block's total.
+__device__ __forceinline__ int block_exclusive_scan(int v, int& total) {
+  __shared__ int warp_sum[8];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const int s = warp_sum[w];
+    if (w < warp) before += s;
+    total += s;
+  }
+  __syncthreads();
+  return before + x - v;
+}
+
+// A block's items: kScanItems consecutive counts a thread.
+__device__ __forceinline__ int thread_items(const int* __restrict__ count,
+                                            long long n, long long first,
+                                            int (&c)[kScanItems]) {
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    c[j] = first + j < n ? count[first + j] : 0;
+    sum += c[j];
+  }
+  return sum;
+}
+
+// Pass 2a: each block's total.
+__global__ void __launch_bounds__(256)
+    scan_totals_kernel(const int* __restrict__ count, long long n,
+                       int* __restrict__ totals) {
+  int c[kScanItems];
+  const long long first =
+      (long long)blockIdx.x * kScanBlock + threadIdx.x * kScanItems;
+  int total;
+  block_exclusive_scan(thread_items(count, n, first, c), total);
+  if (threadIdx.x == 0) totals[blockIdx.x] = total;
+}
+
+// Pass 2b: the blocks' totals scanned in place by one block, their sum
+// after them (totals[nb]).
+__global__ void __launch_bounds__(256) scan_blocks_kernel(int* totals,
+                                                          int nb) {
+  int carry = 0;
+  for (int base = 0; base < nb; base += 256) {
+    const int i = base + threadIdx.x;
+    const int v = i < nb ? totals[i] : 0;
+    int total;
+    const int before = block_exclusive_scan(v, total);
+    if (i < nb) totals[i] = carry + before;
+    carry += total;
+  }
+  if (threadIdx.x == 0) totals[nb] = carry;
+}
+
+// Pass 2c: start[i] for every cell, and start[n], the records in all.
+__global__ void __launch_bounds__(256)
+    scan_starts_kernel(const int* __restrict__ count, long long n,
+                       const int* __restrict__ totals, int nb,
+                       int* __restrict__ start) {
+  int c[kScanItems];
+  const long long first =
+      (long long)blockIdx.x * kScanBlock + threadIdx.x * kScanItems;
+  int total;
+  int run = totals[blockIdx.x] +
+            block_exclusive_scan(thread_items(count, n, first, c), total);
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j)
+    if (first + j < n) {
+      start[first + j] = run;
+      run += c[j];
+    }
+  if (blockIdx.x == 0 && threadIdx.x == 0) start[n] = totals[nb];
+}
+
+// V channels of g at p, widened to float32: a 16-byte load (V = 4 float32),
+// an 8-byte one (V = 4 bfloat16) or a scalar.
+template <int V>
+__device__ __forceinline__ void load_channels(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_channels(const __nv_bfloat16* p,
+                                              float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xffff0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xffff0000u);
+  } else {
+    v[0] = load_f32(p);
+  }
+}
+
+// The integer number of units 2^lg nearest the finite float t (half up).
+__device__ __forceinline__ long long to_units(float t, int lg) {
+  const unsigned b = __float_as_uint(t);
+  const unsigned ex = (b >> 23) & 0xffu;
+  long long m = ex ? (long long)((b & 0x7fffffu) | 0x800000u)
+                   : (long long)(b & 0x7fffffu);
+  if (b >> 31) m = -m;
+  const int d = (ex ? (int)ex - 150 : -149) - lg;  // t = m * 2^d units
+  if (d >= 0) return (long long)((unsigned long long)m << d);
+  const int sh = -d;
+  return sh > 62 ? 0 : (m + (1ll << (sh - 1))) >> sh;
+}
+
+// Pass 4: thread i of cells * G sums channels [l * V, l * V + V) of cell
+// i / G (l = i % G) over the cell's records.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+    pairs_bwd_sum_kernel(const int* __restrict__ start,
+                         const int2* __restrict__ recs,
+                         const T* __restrict__ g, T* __restrict__ grad,
+                         long long cells, int G, int C) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= cells * G) return;
+  const long long cell = i / G;
+  const int c0 = (int)(i - cell * G) * V;
+  const int b = start[cell];
+  const int e = start[cell + 1];
+  unsigned top[V];        // the largest finite |term|'s bits
+  unsigned flags[V];      // 1 NaN, 2 +inf, 4 -inf
+#pragma unroll
+  for (int j = 0; j < V; ++j) top[j] = flags[j] = 0u;
+  for (int r = b; r < e; ++r) {
+    const int2 rec = __ldg(recs + r);
+    float gv[V];
+    load_channels<V>(g + (long long)rec.x * C + c0, gv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const unsigned t =
+          __float_as_uint(__fmul_rn(gv[j], __int_as_float(rec.y)));
+      const unsigned a = t & 0x7fffffffu;
+      if (a < 0x7f800000u)
+        top[j] = max(top[j], a);
+      else
+        flags[j] |= a > 0x7f800000u ? 1u : (t >> 31) ? 4u : 2u;
+    }
+  }
+  const int n = e - b;
+  const int c = n > 1 ? 32 - __clz(n - 1) : 0;   // 2^c >= n
+  int lg[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int ex = (int)(top[j] >> 23);
+    lg[j] = (ex == 0 ? -126 : ex - 126) - 62 + c;  // |term| < 2^(lg + 62 - c)
+  }
+  long long acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0;
+  for (int r = b; r < e; ++r) {
+    const int2 rec = __ldg(recs + r);
+    float gv[V];
+    load_channels<V>(g + (long long)rec.x * C + c0, gv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float t = __fmul_rn(gv[j], __int_as_float(rec.y));
+      if ((__float_as_uint(t) & 0x7fffffffu) < 0x7f800000u)
+        acc[j] += to_units(t, lg[j]);
+    }
+  }
+  float out[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    out[j] = flags[j] ? (flags[j] & 1u || flags[j] == 6u
+                             ? __int_as_float(0x7fc00000)
+                             : flags[j] == 2u ? __int_as_float(0x7f800000)
+                                              : __int_as_float(0xff800000))
+                      : round_fixed(acc[j], lg[j]);
+  T* o = grad + cell * C + c0;
+  if constexpr (V == 4) {
+    Vec<T>::store4(o, out);
+  } else {
+    store_f32(o, out[0]);
+  }
+}
+
+// The workspace of a call, in 4-byte words: the counts, the starts, the
+// scan's block totals, then the records (8 bytes each, one a valid
+// corner, at most 4 a pixel), each part on a 16-byte boundary.
+struct Work {
+  long long cells, nb, count, start, totals, recs, words;
+};
+
+inline long long round4(long long x) { return (x + 3) / 4 * 4; }
+
+inline Work work_of(int S, int M, int H, int W) {
+  Work w;
+  w.cells = (long long)S * H * W;
+  w.nb = (w.cells + kScanBlock - 1) / kScanBlock;
+  w.count = 0;
+  w.start = round4(w.cells);
+  w.totals = w.start + round4(w.cells + 1);
+  w.recs = w.totals + round4(w.nb + 1);
+  w.words = w.recs + 8LL * M * H * W;
+  return w;
+}
+
+// The passes of one call into grad: parts & 1 zeroes the counts, & 2
+// counts, & 4 scans, & 8 places the records, & 16 sums.
+template <typename T>
+int bwd(const float* flow, const int* src, const T* g, int* work, T* grad,
+        int S, int M, int H, int W, int C, int vector, int parts,
+        cudaStream_t s) {
+  const Work w = work_of(S, M, H, W);
+  const long long pixels = (long long)M * H * W;
+  if (w.cells == 0) return 0;
+  if (4 * pixels >= (1LL << 31) || (vector && C % 4))
+    return (int)cudaErrorInvalidValue;
+  int* count = work + w.count;
+  int* start = work + w.start;
+  int* totals = work + w.totals;
+  int2* recs = reinterpret_cast<int2*>(work + w.recs);
+  const unsigned pix_blocks = (unsigned)((pixels + 255) / 256);
+  int err = 0;
+  if (parts & 1)
+    err = (int)cudaMemsetAsync(count, 0, sizeof(int) * w.cells, s);
+  if (!err && (parts & 2) && pixels) {
+    pairs_bwd_index_kernel<false><<<pix_blocks, 256, 0, s>>>(
+        flow, src, count, start, recs, pixels, H, W);
+    err = (int)cudaGetLastError();
+  }
+  if (!err && (parts & 4)) {
+    scan_totals_kernel<<<(unsigned)w.nb, 256, 0, s>>>(count, w.cells,
+                                                      totals);
+    scan_blocks_kernel<<<1, 256, 0, s>>>(totals, (int)w.nb);
+    scan_starts_kernel<<<(unsigned)w.nb, 256, 0, s>>>(count, w.cells, totals,
+                                                      (int)w.nb, start);
+    err = (int)cudaGetLastError();
+  }
+  if (!err && (parts & 8) && pixels) {
+    pairs_bwd_index_kernel<true><<<pix_blocks, 256, 0, s>>>(
+        flow, src, count, start, recs, pixels, H, W);
+    err = (int)cudaGetLastError();
+  }
+  if (!err && (parts & 16)) {
+    const int V = vector ? 4 : 1;
+    const int G = C / V;
+    const unsigned blocks = (unsigned)((w.cells * G + 255) / 256);
+    if (vector)
+      pairs_bwd_sum_kernel<T, 4><<<blocks, 256, 0, s>>>(start, recs, g, grad,
+                                                         w.cells, G, C);
+    else
+      pairs_bwd_sum_kernel<T, 1><<<blocks, 256, 0, s>>>(start, recs, g, grad,
+                                                         w.cells, G, C);
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
+int bwd_any(const float* flow, const int* src, const void* g, void* work,
+            void* grad, int S, int M, int H, int W, int C, int bf16,
+            int vector, int parts, cudaStream_t s) {
+  return bf16 ? bwd<__nv_bfloat16>(flow, src, (const __nv_bfloat16*)g,
+                                   (int*)work, (__nv_bfloat16*)grad, S, M, H,
+                                   W, C, vector, parts, s)
+              : bwd<float>(flow, src, (const float*)g, (int*)work,
+                           (float*)grad, S, M, H, W, C, vector, parts, s);
+}
+
+#ifdef DIS_AB_VARIANTS
+// The float-atomic backward this design replaced, for the before-and-after
+// timing only: a vector scatter of 4-channel float4 atomics (RED.ADD.F32x4)
+// into a float32 scratch zeroed first, then for bfloat16 a cast; its sums'
+// order, and so their last bits, vary from run to run.
 // Four channels of g, widened to float32: one 16-byte load in float32,
 // one 8-byte load in bfloat16 (exact: the bits shifted up), both through
 // the read-only path.
@@ -491,139 +876,30 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ x,
   for (long long i = 4 * n4 + first; i < n; i += stride)
     y[i] = __float2bfloat16_rn(x[i]);
 }
-
-constexpr int kThreads = 256;
-
-inline dim3 grid_for(int M, int H, int W, int C) {
-  return dim3((W * C + kThreads - 1) / kThreads, H, M);
-}
-
-template <typename T>
-int fwd_scalar(const void* feat, const float* flow, const int* src, void* out,
-               int M, int H, int W, int C, void* stream) {
-  warp2d_pairs_fwd_kernel<T>
-      <<<grid_for(M, H, W, C), kThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)feat, flow, src, (T*)out, H, W, C);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int VPT>
-int fwd_vec(const void* feat, const float* flow, const int* src,
-            const int* order, void* out, int M, int H, int W, int C,
-            void* stream) {
-  const int G = C / (Vec<T>::kN * VPT);
-  if (G < 1 || G > kThreads || G * Vec<T>::kN * VPT != C)
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(G, kThreads / G);
-  const dim3 grid((H * W + block.y - 1) / block.y, M);
-  warp2d_pairs_fwd_vec_kernel<T, VPT>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-          (const T*)feat, flow, src, order, (T*)out, H, W, C);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int fwd(const void* feat, const float* flow, const int* src,
-        const int* order, void* out, int M, int H, int W, int C, int vpt,
-        void* stream) {
-  switch (vpt) {
-    case 0:
-      return fwd_scalar<T>(feat, flow, src, out, M, H, W, C, stream);
-    case 1:
-      return fwd_vec<T, 1>(feat, flow, src, order, out, M, H, W, C, stream);
-    case 2:
-      return fwd_vec<T, 2>(feat, flow, src, order, out, M, H, W, C, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, int VPT, int PX>
-int bwd_vec(const float* flow, const int* src, const int* order,
-            const void* g, float* scratch, int M, int H, int W, int C,
-            cudaStream_t stream) {
-  const int G = C / (4 * VPT);
-  if (G < 1 || G > kThreads || G * 4 * VPT != C)
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(G, kThreads / G);
-  const int groups = (H * W + PX - 1) / PX;
-  const dim3 grid((groups + block.y - 1) / block.y, M);
-  warp2d_pairs_bwd_vec_kernel<T, VPT, PX><<<grid, block, 0, stream>>>(
-      flow, src, order, (const T*)g, scratch, H, W, C);
-  return (int)cudaGetLastError();
-}
-
-// The scatter alone, onto the scratch as it stands: vpt = 0 the scalar
-// scatter, vpt = 1 the vector scatter (one 4-channel vector of 8 pixels a
-// thread); with -DDIS_AB_VARIANTS also the variants that lost, vpt = 1 or
-// 2 vectors of px = 1, 2, 4 or 8 pixels.
-template <typename T>
-int scatter(const float* flow, const int* src, const int* order,
-            const void* g, float* scratch, int M, int H, int W, int C,
-            int vpt, int px, cudaStream_t s) {
-  if (vpt == 0) {
-    warp2d_pairs_bwd_kernel<T><<<grid_for(M, H, W, C), kThreads, 0, s>>>(
-        flow, src, (const T*)g, scratch, H, W, C);
-    return (int)cudaGetLastError();
-  }
-  if (vpt == 1 && px == 8)
-    return bwd_vec<T, 1, 8>(flow, src, order, g, scratch, M, H, W, C, s);
-#ifdef DIS_AB_VARIANTS
-  switch (10 * vpt + px) {
-    case 11:
-      return bwd_vec<T, 1, 1>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 12:
-      return bwd_vec<T, 1, 2>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 14:
-      return bwd_vec<T, 1, 4>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 21:
-      return bwd_vec<T, 2, 1>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 22:
-      return bwd_vec<T, 2, 2>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 24:
-      return bwd_vec<T, 2, 4>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-    case 28:
-      return bwd_vec<T, 2, 8>(flow, src, order, g, scratch, M, H, W,
-                              C, s);
-  }
-#endif
-  return (int)cudaErrorInvalidValue;
-}
-
-int zero(float* scratch, long long n, cudaStream_t s) {
-  return (int)cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)n, s);
-}
-
-// Rounds the n floats of scratch into grad (bfloat16).
-int cast(const float* scratch, void* grad, long long n, cudaStream_t s) {
-  const int threads = 256;
-  const long long want = n / 4 / threads + 1;
-  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  if (n > 0)
-    f32_to_bf16_kernel<<<blocks, threads, 0, s>>>(
-        scratch, (__nv_bfloat16*)grad, n);
-  return (int)cudaGetLastError();
-}
-
-int bwd(const float* flow, const int* src, const int* order, const void* g,
-        float* scratch, void* grad_bf16, int S, int M, int H, int W, int C,
-        int bf16, int vpt, int px, cudaStream_t s) {
+int atomic_bwd(const float* flow, const int* src, const int* order,
+               const void* g, float* scratch, void* grad_bf16, int S, int M,
+               int H, int W, int C, int bf16, cudaStream_t s) {
   const long long n = (long long)S * H * W * C;
-  int err = zero(scratch, n, s);
-  if (err == 0)
-    err = bf16 ? scatter<__nv_bfloat16>(flow, src, order, g, scratch, M, H,
-                                        W, C, vpt, px, s)
-               : scatter<float>(flow, src, order, g, scratch, M, H, W, C,
-                                vpt, px, s);
-  if (err != 0 || !bf16) return err;
-  return cast(scratch, grad_bf16, n, s);
+  const int G = C / 4;
+  if (C % 4 || G > kThreads) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaMemsetAsync(scratch, 0, sizeof(float) * (size_t)n, s);
+  if (err) return err;
+  const dim3 block(G, kThreads / G);
+  const dim3 grid(((H * W + 7) / 8 + block.y - 1) / block.y, M);
+  if (bf16)
+    warp2d_pairs_bwd_vec_kernel<__nv_bfloat16, 1, 8><<<grid, block, 0, s>>>(
+        flow, src, order, (const __nv_bfloat16*)g, scratch, H, W, C);
+  else
+    warp2d_pairs_bwd_vec_kernel<float, 1, 8><<<grid, block, 0, s>>>(
+        flow, src, order, (const float*)g, scratch, H, W, C);
+  err = (int)cudaGetLastError();
+  if (err || !bf16 || n == 0) return err;
+  const long long want = n / 4 / 256 + 1;
+  f32_to_bf16_kernel<<<(int)(want < 132 * 32 ? want : 132 * 32), 256, 0, s>>>(
+      scratch, (__nv_bfloat16*)grad_bf16, n);
+  return (int)cudaGetLastError();
 }
+#endif
 
 }  // namespace
 
@@ -647,51 +923,49 @@ extern "C" int dis_warp2d_pairs_fwd(const void* feat, const float* flow,
               : fwd<float>(feat, flow, src, order, out, M, H, W, C, vpt,
                            stream);
 }
+// The workspace dis_warp2d_pairs_bwd needs, in bytes (16-byte aligned).
+extern "C" long long dis_warp2d_pairs_bwd_work(int S, int M, int H, int W) {
+  return 4 * work_of(S, M, H, W).words;
+}
 
-// flow, src, order as above; g: contiguous (M, H, W, C) float32 or
-// bfloat16; scratch: contiguous (S, H, W, C) float32, 16-byte aligned,
-// zeroed here on the stream and then the float32 gradient; grad_bf16: for
-// bf16 = 1, a contiguous (S, H, W, C) bfloat16 output, 8-byte aligned, that
-// the scratch is rounded into (unused for float32). vector = 0 launches the
-// scalar scatter (one thread per element, in table order; order unused);
-// vector = 1 the vector scatter (each thread one 4-channel vector of 8
-// consecutive pixels), which needs C a multiple of 4, at most 256 threads
-// a pixel, g aligned to 4 channels (16 bytes in float32, 8 in bfloat16) and
-// flow 8-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a C that the vector scatter does not take.
+// flow: contiguous (M, H, W, 2) float32 in pixels, (u, v); src: (M,) int32
+// on the device, 0 <= src[m] < S; g: contiguous (M, H, W, C) float32 or
+// bfloat16; work: dis_warp2d_pairs_bwd_work(S, M, H, W) bytes, 16-byte
+// aligned; grad: contiguous (S, H, W, C) in g's type, written whole.
+// vector = 1 sums 4 channels a thread, which needs C a multiple of 4, g
+// aligned to 4 channels (16 bytes in float32, 8 in bfloat16) and grad as
+// well; vector = 0 one channel a thread. Needs 4 * M * H * W < 2^31.
+// Returns the first CUDA error of its launches, or cudaErrorInvalidValue for
+// a shape it does not take.
 extern "C" int dis_warp2d_pairs_bwd(const float* flow, const int* src,
-                                    const int* order, const void* g,
-                                    float* scratch, void* grad_bf16, int S,
-                                    int M, int H, int W, int C, int bf16,
-                                    int vector, void* stream) {
-  return bwd(flow, src, order, g, scratch, grad_bf16, S, M, H, W, C, bf16,
-             vector ? 1 : 0, 8, (cudaStream_t)stream);
+                                    const void* g, void* work, void* grad,
+                                    int S, int M, int H, int W, int C,
+                                    int bf16, int vector, void* stream) {
+  return bwd_any(flow, src, g, work, grad, S, M, H, W, C, bf16, vector, 31,
+                 (cudaStream_t)stream);
 }
 
 #ifdef DIS_AB_VARIANTS
-// For scripts/ab_torch_kernels.py and chip_smoke.py, built with
-// -DDIS_AB_VARIANTS only: dis_warp2d_pairs_bwd with the vector scatter's
-// shape chosen (vpt = 1 or 2 vectors a thread of px = 1, 2, 4 or 8 pixels;
-// vpt = 0 the scalar scatter), and parts = 7 for the whole call or one part
-// alone, to time it: the zeroing (1), the scatter (2, onto the scratch as
-// it stands) or the cast (4).
+// For the before-and-after timing (chip_smoke.py phase 3,
+// scripts/ab_torch_kernels.py), built with -DDIS_AB_VARIANTS only:
+// dis_warp2d_pairs_bwd with one part of the call alone (parts, as bwd
+// takes them: 1 zeroing, 2 count, 4 scan, 8 place, 16 sum) or, with
+// atomic = 1, that float-atomic vector scatter: work taken as a float32
+// (S, H, W, C) scratch (it must hold 4 * S*H*W*C bytes), zeroed and
+// scattered into with float4 atomics in the source-major order (an int32
+// permutation of the M pairs), then for bfloat16 cast into grad (for
+// float32 the result is the scratch; grad unused).
 extern "C" int dis_ab_warp2d_pairs_bwd(const float* flow, const int* src,
                                        const int* order, const void* g,
-                                       float* scratch, void* grad_bf16,
-                                       int S, int M, int H, int W, int C,
-                                       int bf16, int vpt, int px, int parts,
+                                       void* work, void* grad, int S, int M,
+                                       int H, int W, int C, int bf16,
+                                       int vector, int atomic, int parts,
                                        void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (parts == 7)
-    return bwd(flow, src, order, g, scratch, grad_bf16, S, M, H, W, C, bf16,
-               vpt, px, s);
-  const long long n = (long long)S * H * W * C;
-  if (parts == 1) return zero(scratch, n, s);
-  if (parts == 4) return bf16 ? cast(scratch, grad_bf16, n, s) : 0;
-  if (parts != 2) return (int)cudaErrorInvalidValue;
-  return bf16 ? scatter<__nv_bfloat16>(flow, src, order, g, scratch, M, H, W,
-                                       C, vpt, px, s)
-              : scatter<float>(flow, src, order, g, scratch, M, H, W, C, vpt,
-                               px, s);
+  if (atomic)
+    return atomic_bwd(flow, src, order, g, (float*)work, grad, S, M, H, W, C,
+                      bf16, s);
+  return bwd_any(flow, src, g, work, grad, S, M, H, W, C, bf16, vector, parts,
+                 s);
 }
 #endif

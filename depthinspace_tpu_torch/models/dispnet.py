@@ -5,8 +5,9 @@
   32..512 (x channel_multiplier), first kernels 7 and 5;
 - 7 transposed-conv decoder stages with skip-concat 3x3 "iconv" convs;
 - 4 heads at 1/8..1/1 scale: 3x3 conv, then sigmoid(x - 3) * max_disp / 2^s;
-- each coarser prediction is upsampled bilinearly (align_corners=False)
-  into the next decoder stage; all four outputs return at full resolution.
+- each coarser prediction is upsampled bilinearly (align_corners=False,
+  the JAX model's two-tap ``resize_bilinear``) into the next decoder
+  stage; all four outputs return at full resolution.
 
 The public layout is the JAX one: input (N, H, W, 2) = [LCN(IR), IR],
 outputs 4 x (N, H, W, 1), finest first. Inside, the network runs NCHW.
@@ -26,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.sampling import resize_bilinear
 
 
 def _same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
@@ -58,15 +61,17 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
     stored already flipped (torch's convention); output is (2h, 2w).
 
     torch's conv_transpose2d cropped to (2h, 2w). On a CUDA tensor with
-    cuDNN's deterministic algorithms on (the servers' and presave_disp's
-    forwards, ``serve.CUDNN_FLAGS``) the same function runs as a 2x2
+    cuDNN's deterministic algorithms on (the deterministic mode,
+    ``device.set_deterministic``) the same function runs as a 2x2
     convolution of the input padded by one row and column at the top and
     left, into 4x the channels (channel c of output parity (a, b) at
     4c + 2a + b), then a pixel shuffle: cuDNN computes a transposed
     convolution with a backward-data kernel whose deterministic algorithm
     is slow (at the last decoder stage it took most of a server's
     forward), and a convolution's deterministic algorithms are its fast
-    ones. Training, on the default algorithms, keeps conv_transpose2d."""
+    ones. Since every entry point that takes the card turns them on
+    (``device.set_deterministic``), training runs this form too; the CPU
+    keeps conv_transpose2d."""
 
     def __init__(self, cin: int, cout: int, k: int = 3):
         if k != 3:
@@ -131,12 +136,24 @@ def _crop_like(x, ref):
     return x[:, :, :ref.shape[2], :ref.shape[3]]
 
 
+def _resize_nchw(x, height: int, width: int):
+    """The JAX DispNet's bilinear resize (align_corners=False) of an NCHW
+    tensor: ``ops.sampling.resize_bilinear``, two taps a row and a column,
+    whose backward (the JAX resize's matrix product) is deterministic on the
+    card; F.interpolate's bilinear backward adds with float atomics there
+    and raises under torch's deterministic mode."""
+    out = resize_bilinear(x.permute(0, 2, 3, 1), height, width,
+                          align_corners=False)
+    # NCHW strides: a (N, 1, H, W) view of NHWC data has strides that also
+    # read as channels-last, and the convolutions after the concatenation
+    # then run on slower cuDNN kernels
+    return out.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+
+
 def _up2(x, ref):
     """Bilinear x2 upsample (align_corners=False), cropped to ref's HW."""
     h, w = x.shape[2], x.shape[3]
-    out = F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear",
-                        align_corners=False)
-    return _crop_like(out, ref)
+    return _crop_like(_resize_nchw(x, 2 * h, 2 * w), ref)
 
 
 class DispNet(nn.Module):
@@ -194,10 +211,8 @@ class DispNet(nn.Module):
         H, W = disp1.shape[2], disp1.shape[3]
 
         def full(d):
-            if d.shape[2:] != (H, W):
-                d = F.interpolate(d, size=(H, W), mode="bilinear",
-                                  align_corners=False)
-            return d.permute(0, 2, 3, 1)
+            return resize_bilinear(d.permute(0, 2, 3, 1), H, W,
+                                   align_corners=False)
 
         return (full(disp1), full(disp2), full(disp3), full(disp4))
 

@@ -18,17 +18,13 @@ and mse, sad and census_mse, plain tensor code off the training path.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import kernels
+from .sampling import pad_edge
 
 
 def _soft_heaviside(d: torch.Tensor, eps: float) -> torch.Tensor:
     return 0.5 * (1.0 + d * torch.rsqrt(d * d + eps))
-
-
-def _pad_edge(x: torch.Tensor, p: int) -> torch.Tensor:
-    return F.pad(x[:, None], (p, p, p, p), mode="replicate")[:, 0]
 
 
 def census_sad_plain(es: torch.Tensor, ta: torch.Tensor,
@@ -38,7 +34,7 @@ def census_sad_plain(es: torch.Tensor, ta: torch.Tensor,
     them. es, ta: (N, H, W)."""
     N, H, W = es.shape
     p = block_size // 2
-    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
+    es_pad, ta_pad = pad_edge(es, p), pad_edge(ta, p)
     acc = torch.zeros_like(es)
     for dy in range(block_size):
         for dx in range(block_size):
@@ -67,7 +63,7 @@ def census_sad_bwd_plain(es: torch.Tensor, ta: torch.Tensor, g: torch.Tensor,
     with respect to es. es, ta, g: (N, H, W)."""
     N, H, W = es.shape
     p = block_size // 2
-    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
+    es_pad, ta_pad = pad_edge(es, p), pad_edge(ta, p)
     inv_b2 = 1.0 / block_size ** 2
     grad_pad = torch.zeros_like(es_pad)
     center = torch.zeros_like(es)
@@ -133,7 +129,7 @@ def photometric_dissimilarity(es: torch.Tensor, ta: torch.Tensor,
         raise ValueError(f"invalid loss type {loss_type!r}")
     N, H, W = es.shape
     p = block_size // 2
-    es_pad, ta_pad = _pad_edge(es, p), _pad_edge(ta, p)
+    es_pad, ta_pad = pad_edge(es, p), pad_edge(ta, p)
     acc = torch.zeros_like(es)
     for dy in range(block_size):
         for dx in range(block_size):

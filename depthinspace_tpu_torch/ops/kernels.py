@@ -32,11 +32,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("census_sad.cu", "xwarp.cu", "warp2d.cu", "warp2d_pairs.cu",
            "threefry.cu")
+HEADERS = ("round_fixed.cuh",)   # included by sources; in the library's hash
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# adds the kernel variants that lost their A/B comparison, and entry points
-# that reach them, to a second library (variant_library)
+# adds the entry points that time K3's and K4's backward against their
+# float-atomic versions, or one pass of a call alone, and K1 with the rows a
+# warp writes given, to a second library (variant_library)
 VARIANT_FLAGS = ("-DDIS_AB_VARIANTS",)
 
 # Launches of each kernel since the last reset_launches(). warp2d_v1_* are
@@ -70,7 +72,7 @@ def nvcc_path() -> str:
 
 def library_path(flags: tuple = ()) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16] / "libdis_kernels.so"
@@ -133,10 +135,11 @@ def library() -> ctypes.CDLL:
 
 def variant_library() -> ctypes.CDLL:
     """The kernels built with :data:`VARIANT_FLAGS`: the entry points of
-    :func:`library` and the ``dis_ab_*`` ones, which also launch the
-    variants that lost their A/B comparison, run one part of K4's or K3's
-    backward alone, or run K1 with the rows a warp writes given, for timing
-    (scripts/ab_torch_kernels.py, chip_smoke.py). No wrapper calls it."""
+    :func:`library` and the ``dis_ab_*`` ones, which also launch K3's and
+    K4's backward with the float atomics they had before they became
+    deterministic, run one pass of those backwards alone, or run K1 with
+    the rows a warp writes given, for timing (scripts/ab_torch_kernels.py,
+    chip_smoke.py). No wrapper calls it."""
     so, _ = build(VARIANT_FLAGS)
     return bind_variants(bind(ctypes.CDLL(str(so))))
 
@@ -144,10 +147,7 @@ def variant_library() -> ctypes.CDLL:
 def bind_variants(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of the ``dis_ab_*`` entry points on lib."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dis_ab_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                      i32, ptr]
-    lib.dis_ab_warp2d_fwd.restype = i32
-    lib.dis_ab_warp2d_bwd.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.dis_ab_warp2d_bwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.dis_ab_warp2d_bwd.restype = i32
     lib.dis_ab_warp2d_pairs_bwd.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.dis_ab_warp2d_pairs_bwd.restype = i32
@@ -180,15 +180,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dis_xwarp_bwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, i32,
                                   ptr]
     lib.dis_xwarp_bwd.restype = i32
-    lib.dis_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                   ptr]
+    lib.dis_warp2d_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.dis_warp2d_bwd.restype = i32
     lib.dis_warp2d_pairs_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
                                          i32, i32, i32, i32, i32, ptr]
     lib.dis_warp2d_pairs_fwd.restype = i32
-    lib.dis_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                         i32, i32, i32, i32, i32, i32, ptr]
+    lib.dis_warp2d_pairs_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.dis_warp2d_pairs_bwd.restype = i32
+    lib.dis_warp2d_pairs_bwd_work.argtypes = [i32] * 4
+    lib.dis_warp2d_pairs_bwd_work.restype = i64
     u32 = ctypes.c_uint
     lib.dis_threefry_draw.argtypes = [ptr, i64, u32, u32, i64, i64, i64, i32,
                                       i32, f32, f32, f32, ptr]
@@ -405,15 +405,33 @@ def warp2d_bwd_path(C: int, H: int, W: int, flow_ptr: int) -> int:
                and (H + 2) * (W + 4) < 2 ** 31)
 
 
+def fixed_bits(terms: int) -> int:
+    """c of K3 backward's fixed-point sum (``csrc/warp2d.cu``): the least
+    c >= 1 with 2^c >= ``terms``, the bound on the terms one cell receives
+    (H * W: a pixel adds to a cell of its own plane at most once)."""
+    return max(1, (terms - 1).bit_length())
+
+
+def fixed_scratch(cells: int, device) -> torch.Tensor:
+    """The fixed-point scratch of K3's backward over ``cells`` elements:
+    two int64 words a cell and two more for the call's largest |g|; the
+    kernel zeroes it."""
+    return torch.empty(2 * cells + 2, dtype=torch.int64, device=device)
+
+
 def _warp2d_bwd(kernel: str, flow: torch.Tensor,
                 g: torch.Tensor) -> torch.Tensor:
     M, H, W, C = _warp2d_shapes(kernel, "g", g, flow)
     grad = torch.empty_like(g)
     if grad.numel():
+        c = fixed_bits(H * W)
+        if c > 29:   # fixed_sum's three flag bits and 32-bit low part
+            raise ValueError(f"{kernel}: at most 2^29 pixels a plane")
+        acc = fixed_scratch(grad.numel(), g.device)
         path = warp2d_bwd_path(C, H, W, flow.data_ptr())
         _launch(kernel, library().dis_warp2d_bwd, flow.data_ptr(),
-                g.data_ptr(), grad.data_ptr(), M, H, W, C, path,
-                device=g.device)
+                g.data_ptr(), grad.data_ptr(), acc.data_ptr(), M, H, W, C,
+                path, c, device=g.device)
     return grad
 
 
@@ -427,9 +445,9 @@ def warp2d_fwd(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def warp2d_bwd(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K3 bwd: flow (M, H, W, 2), g (M, H, W, C) float32 -> grad wrt img
     (M, H, W, C); the flow gets none. The strip kernel or the first design,
-    as :func:`warp2d_bwd_path` chooses by C and alignment. Float atomics:
-    the bits of a sum of three or more contributions vary from run to
-    run."""
+    as :func:`warp2d_bwd_path` chooses by C and alignment, adding into a
+    fixed-point scratch: the same bits on every call with the same
+    inputs."""
     return _warp2d_bwd("warp2d_bwd", flow, g)
 
 
@@ -466,17 +484,13 @@ def pairs_fwd_vpt(C: int, dtype: torch.dtype, feat_ptr: int, flow_ptr: int,
     return PAIRS_VPT if C % (n * PAIRS_VPT) == 0 else 1
 
 
-def pairs_bwd_path(C: int, dtype: torch.dtype, g_ptr: int, flow_ptr: int,
-                   scratch_ptr: int) -> bool:
-    """Whether K4's backward launches the vector scatter (each thread one
-    4-channel vector of g of 8 consecutive pixels), else the scalar scatter
-    (one thread per element). The vector scatter needs C a multiple of 4
-    channels, at most 256 threads a pixel, g aligned to 4 channels (16
-    bytes in float32, 8 in bfloat16), the float32 scratch 16-byte aligned
-    and the flow 8-byte aligned."""
+def pairs_bwd_path(C: int, dtype: torch.dtype, g_ptr: int) -> bool:
+    """Whether K4's backward sums 4 channels a thread (one 16-byte float32
+    or 8-byte bfloat16 load of g a record), else one. 4 needs C a multiple
+    of 4 and g aligned to 4 channels (16 bytes in float32, 8 in
+    bfloat16)."""
     g_align = 4 * (2 if dtype == torch.bfloat16 else 4)
-    return not (C % 4 or C // 4 > 256 or g_ptr % g_align or scratch_ptr % 16
-                or flow_ptr % 8)
+    return not (C % 4 or g_ptr % g_align)
 
 
 def source_major_order(src) -> tuple:
@@ -489,8 +503,8 @@ def source_major_order(src) -> tuple:
 
 def _src_table(kernel: str, src_idx, S: int, M: int,
                device: torch.device) -> torch.Tensor:
-    """The static pair table and its source-major order as an int32
-    (2, M) tensor on ``device``, checked on the host (0 <= src[m] < S) and
+    """The static pair table and its source-major order (the forward's
+    launch order) as an int32 (2, M) tensor on ``device``, checked on the host (0 <= src[m] < S) and
     made once per table and device."""
     key = (tuple(src_idx), device)
     table = _src_tables.get(key)
@@ -549,28 +563,36 @@ def warp2d_pairs_fwd(feat: torch.Tensor, flow: torch.Tensor,
     return out
 
 
+def pairs_bwd_work(S: int, M: int, H: int, W: int, device) -> torch.Tensor:
+    """K4 backward's workspace (the cells' counts and first records, the
+    records): int64 words, as many as the library asks for; the kernel
+    zeroes what it needs."""
+    nbytes = library().dis_warp2d_pairs_bwd_work(S, M, H, W)
+    return torch.empty(nbytes // 8, dtype=torch.int64, device=device)
+
+
 def warp2d_pairs_bwd(flow: torch.Tensor, src_idx, g: torch.Tensor,
                      S: int) -> torch.Tensor:
     """K4 bwd: flow (M, H, W, 2) float32, g (M, H, W, C) float32 or
-    bfloat16 -> grad wrt feat (S, H, W, C) in g's dtype, accumulated in
-    float32 over every pair of each source; the flow gets none. The vector
-    scatter or the scalar one, as :func:`pairs_bwd_path` chooses by shape
-    and alignment. Float atomics: the bits of a sum of three or more
-    contributions vary from run to run."""
+    bfloat16 -> grad wrt feat (S, H, W, C) in g's dtype; the flow gets
+    none. Each cell sums the terms it receives from every pair of its
+    source as integers and rounds once (the same bits on every call with
+    the same inputs), 4 channels a thread or one, as
+    :func:`pairs_bwd_path` chooses by C and alignment."""
     M, H, W, C = _pairs_shapes("warp2d_pairs_bwd", "g", g, flow,
                                flow.shape[0] if flow.dim() == 4 else -1)
     table = _src_table("warp2d_pairs_bwd", src_idx, S, M, g.device)
-    bf16 = g.dtype == torch.bfloat16
-    scratch = torch.empty((S, H, W, C), dtype=torch.float32, device=g.device)
-    grad = torch.empty_like(scratch, dtype=g.dtype) if bf16 else scratch
+    if 4 * M * H * W >= 2 ** 31:
+        raise ValueError("warp2d_pairs_bwd: 4 * M * H * W must fit in int32")
+    grad = torch.empty((S, H, W, C), dtype=g.dtype, device=g.device)
     if grad.numel():
-        vector = pairs_bwd_path(C, g.dtype, g.data_ptr(), flow.data_ptr(),
-                                scratch.data_ptr())
+        work = pairs_bwd_work(S, M, H, W, g.device)
         _launch("warp2d_pairs_bwd", library().dis_warp2d_pairs_bwd,
-                flow.data_ptr(), table[0].data_ptr(), table[1].data_ptr(),
-                g.data_ptr(), scratch.data_ptr(),
-                grad.data_ptr() if bf16 else None, S, M, H, W, C, int(bf16),
-                int(vector), device=g.device)
+                flow.data_ptr(), table[0].data_ptr(), g.data_ptr(),
+                work.data_ptr(), grad.data_ptr(), S, M, H, W, C,
+                int(g.dtype == torch.bfloat16),
+                int(pairs_bwd_path(C, g.dtype, g.data_ptr())),
+                device=g.device)
     return grad
 
 

@@ -3,14 +3,17 @@
 
 Written as a weighted sum of shifted slices of the edge-padded image rather
 than a convolution, so it stays in full float32 on the card (cuDNN
-convolutions default to TF32 there).
+convolutions default to TF32 there). The padding is
+``ops.sampling.pad_edge``, whose backward is deterministic on the card: the
+smoothness loss differentiates the disparity's Sobel.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .sampling import pad_edge
 
 _KX5 = np.array([[-5, -4, 0, 4, 5],
                  [-8, -10, 0, 10, 8],
@@ -34,6 +37,6 @@ def sobel(x: torch.Tensor) -> torch.Tensor:
     """5x5 Sobel of x (N, H, W, 1) -> (N, H, W, 2) = (gx, gy), the only form
     the losses use (the JAX function's ksize=5, norm=False)."""
     N, H, W, _ = x.shape
-    xp = F.pad(x[..., 0][:, None], (2, 2, 2, 2), mode="replicate")[:, 0]
+    xp = pad_edge(x[..., 0], 2)
     return torch.stack([_filter(xp, _KX5, H, W), _filter(xp, _KX5.T, H, W)],
                        dim=-1)

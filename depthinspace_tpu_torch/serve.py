@@ -10,12 +10,12 @@ point (x 65535) and the caller's flow as int16 x 256, so the outputs match
 the JAX servers' for the same request; FlowNet's flow stays float32 on the
 device, as in the JAX server.
 
-The networks run on cuDNN's deterministic algorithms (``CUDNN_FLAGS``, set
-around each forward only, so training keeps its own): the default ones may
-sum in another order from call to call, and FuseNet turns the primary
-disparity's ulps into other neighbour choices, so the same request could
-come back different by many pixels. One request gives one answer, as in
-the JAX servers.
+The networks run on cuDNN's deterministic algorithms, which
+``device.resolve_device`` sets for the whole process (the deterministic
+mode): the default ones may sum in another order from call to call, and
+FuseNet turns the primary disparity's ulps into other neighbour choices, so
+the same request could come back different by many pixels. One request
+gives one answer, as in the JAX servers.
 
 ``DisparityServer(devices=[...])`` keeps one replica of DispNet on each
 device (the JAX server's ``mesh=``) and gives the replicas the request's
@@ -40,12 +40,6 @@ from .models import (DispNet, FlowNet, FuseNet, dispnet_state_dict_from_flax,
                      flow_all_pairs, flownet_state_dict_from_flax,
                      fusenet_state_dict_from_flax)
 from .ops import disp_to_depth, lcn
-
-# cuDNN settings of the servers' and the presave tools' forwards: the
-# deterministic algorithms, without TF32 (``device.set_full_f32``)
-CUDNN_FLAGS = dict(enabled=True, benchmark=False, deterministic=True,
-                   allow_tf32=False)
-
 
 def _bucket(n: int, max_batch: int) -> int:
     b = 1
@@ -147,9 +141,7 @@ class DisparityServer:
     def _run(self, images: np.ndarray, replica: int = 0) -> torch.Tensor:
         im = decode_field("im", torch.from_numpy(encode_unit(images)).to(
             self.devices[replica]))
-        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-            return sf_forward(self.models[replica],
-                              lcn_input(im, self.lcn_radius))
+        return sf_forward(self.models[replica], lcn_input(im, self.lcn_radius))
 
     def infer(self, images: np.ndarray) -> np.ndarray:
         """images (n, H, W) float32 in [0, 1] -> disparities (n, H, W)."""
@@ -259,13 +251,12 @@ class TrackDisparityServer:
         to = lambda x: torch.from_numpy(x).to(self.device)
         im = decode_field("im", to(im_u16))
         amb = decode_field("ambient", to(amb_u16))
-        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-            ir = lcn_input(im, self.lcn_radius)
-            primary = sf_forward(self.sf, ir)
-            flow = (flow_all_pairs(self.flow, im, amb) if flow_i16 is None
-                    else decode_field("flow", to(flow_i16)))
-            out = mf_forward(self.mf, ir, amb, primary, to(R), to(t), flow,
-                             self.focal, self.baseline)
+        ir = lcn_input(im, self.lcn_radius)
+        primary = sf_forward(self.sf, ir)
+        flow = (flow_all_pairs(self.flow, im, amb) if flow_i16 is None
+                else decode_field("flow", to(flow_i16)))
+        out = mf_forward(self.mf, ir, amb, primary, to(R), to(t), flow,
+                         self.focal, self.baseline)
         return to_u16_disp(out)
 
     def infer(self, im, ambient, R, t, flow=None) -> np.ndarray:

@@ -22,9 +22,9 @@ default OUTPUT_DIR/flownet.msgpack), the flow DIS-MF trained with
 field refreshed (primary_disp or pseudo_gt).
 
 ``main(argv, device=None)`` runs on the card; ``device="cpu"`` only when
-asked for. The forwards run on cuDNN's deterministic algorithms
-(``serve.CUDNN_FLAGS``), as the servers do, so the hand-off files of one
-network are the same from run to run.
+asked for. The forwards run in the deterministic mode
+(``device.resolve_device``), as the servers do, so the hand-off files of
+one network are the same from run to run.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from ..data.wire import (decode_field, encode_disp, encode_flow, encode_unit,
 from ..device import resolve_device
 from ..losses import CameraGeometry
 from ..models import DispNet, FuseNet, flow_all_pairs
-from ..serve import CUDNN_FLAGS, lcn_input, mf_forward, sf_forward
+from ..serve import lcn_input, mf_forward, sf_forward
 from ..train.checkpoint import load_net_params
 from ..train.objective import rigid_flow_device
 
@@ -51,13 +51,13 @@ from ..train.objective import rigid_flow_device
 def build_sf_infer(model: DispNet, device):
     """(N, H, W) uint16 x65535 images -> (N, H, W) uint16 x256 disparities,
     DIS-SF on ``device`` (the forward of ``DisparityServer``)."""
+    device = resolve_device(device)
     model = model.to(device).eval()
 
     @torch.inference_mode()
     def infer(im_u16: np.ndarray) -> np.ndarray:
         im = decode_field("im", torch.from_numpy(im_u16).to(device))
-        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-            disp = sf_forward(model, lcn_input(im))
+        disp = sf_forward(model, lcn_input(im))
         return to_u16_disp(disp).cpu().numpy()
 
     return infer
@@ -71,6 +71,7 @@ def build_mf_infer(settings, model: FuseNet, device,
     (tl, tl, N, H, W, 2) int16 x256 flow ("file") or the GT disparity
     (uint16 x256, "rigid") -> (tl, N, H, W) uint16 x256. "net" takes the
     FlowNet ``flow_net``."""
+    device = resolve_device(device)
     if flow_source == "net":
         flow_net = flow_net.to(device).eval()
     H, W = settings.imsize
@@ -86,17 +87,16 @@ def build_mf_infer(settings, model: FuseNet, device,
         im = decode_field("im", to(im_u16))
         amb = decode_field("ambient", to(amb_u16))
         R, t = to(R), to(t)
-        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
-            if flow_source == "file":
-                flow = decode_field("flow", to(flow_i16))
-            elif flow_source == "net":
-                flow = flow_all_pairs(flow_net, im, amb)
-            else:
-                disp = (primary if flow_source == "pred" else
-                        decode_field("disp_gt", to(dispgt_u16)))
-                flow = rigid_flow_device(cam, disp, R, t, focal, baseline)
-            out = mf_forward(model, lcn_input(im), amb, primary, R, t, flow,
-                             focal, baseline)
+        if flow_source == "file":
+            flow = decode_field("flow", to(flow_i16))
+        elif flow_source == "net":
+            flow = flow_all_pairs(flow_net, im, amb)
+        else:
+            disp = (primary if flow_source == "pred" else
+                    decode_field("disp_gt", to(dispgt_u16)))
+            flow = rigid_flow_device(cam, disp, R, t, focal, baseline)
+        out = mf_forward(model, lcn_input(im), amb, primary, R, t, flow,
+                         focal, baseline)
         return to_u16_disp(out).cpu().numpy()
 
     return infer

@@ -9,22 +9,23 @@ NVIDIA card, measured in turns.
         --old build/old/depthinspace_tpu_torch/csrc --out build/ab.json
 
 Builds this checkout's kernels (``depthinspace_tpu_torch/csrc``, with
-``kernels.VARIANT_FLAGS``: the variants that lost, and the ``dis_ab_*``
-entry points that reach them) and the older sources of the chosen kernels
-(``--kernels``, a comma list of k1, k3, k4) with nvcc into one library under
-``build/ab/``, the older entry points renamed ``dis_old_*``: k1 takes the
-older ``census_sad.cu`` (any version with the forward and the backward:
-their C interface has not changed), k3 the older ``warp2d.cu`` with the
-interface it had from commit b4bb124 (the forward's path argument) until
-K3's backward took one, and k4 the older ``warp2d_pairs.cu`` with the
-interface it had at commit 8658ce4, before K4's backward took an order
-table and a path. Every variant is checked against the plain version
-before any time is printed: K1, K1 bwd and K3 bwd within chip_smoke.py's
-1e-5, K3's forward bit for bit, K4's backward within chip_smoke.py's
-tolerance (float atomics). Then each variant is timed at the
-main paths' shapes, first in the listed order and then in reverse (old,
-new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
-(median of 25, each call queued behind a device sleep):
+``kernels.VARIANT_FLAGS``: the ``dis_ab_*`` entry points, which also run
+K3's and K4's backward with the float atomics they had before they became
+deterministic, or one pass of a call alone) and the older sources of the
+chosen kernels (``--kernels``, a comma list of k1, k3, k4) with nvcc into
+one library under ``build/ab/``, the older entry points renamed
+``dis_old_*``: k1 takes the older ``census_sad.cu`` (any version with the
+forward and the backward: their C interface has not changed), k3 the older
+``warp2d.cu`` and k4 the older ``warp2d_pairs.cu``, each with the interface
+their backwards took when they became deterministic (K3's: the fixed-point
+scratch after grad, c after the path; K4's: no order table, a workspace
+sized by ``dis_warp2d_pairs_bwd_work``). Every variant is checked against the plain
+version before any time is printed: K1, K1 bwd and K3 bwd within
+chip_smoke.py's 1e-5, K3's forward bit for bit, K4's backward within
+chip_smoke.py's tolerance. Then each variant is timed at the main paths'
+shapes, first in the listed order and then in reverse (old, new, ..., new,
+old), each time as ``chip_smoke.cuda_ms`` times a kernel (median of 25, each
+call queued behind a device sleep):
 
 - K1 and K1 bwd at the SF eval step's (8, 512, 432) and the SF train
   step's (32, 512, 432): the old kernel and this checkout's, as its entry
@@ -32,22 +33,20 @@ new, ..., new, old), each time as ``chip_smoke.cuda_ms`` times a kernel
 - K3's forward on the rigid flows of synthetic batches: the SF geometric
   loss's C = 1 and C = 3 at (24, 512, 432), the MF loss's (and K5's) C = 1
   and C = 5 at (48, 512, 432), FuseNet's geometry warp C = 5 at
-  (48, 256, 216): the old kernel, the first design as this checkout builds
-  it, and the vector kernel with 1, 2 and 4 pixels a thread (C = 1) or with
-  direct and staged stores (C >= 2);
+  (48, 256, 216): the old kernel, the first design and the entry point's
+  choice;
 - K3's (and K5's) backward, C = 1, on the rigid flows of the SF train
   step (96, 512, 432) and the MF step and K5 (48, 512, 432), and on a
-  random flow of +-4 px at (96, 512, 432): the old kernel, the first
-  design, the entry point (the strip kernel, 2 rows a lane), the strip
-  kernel with 1, 2, 4 and 8 rows a lane, the shared-memory tile kernel with
-  a float4 flush (1 and 2 rows a warp) and a scalar one; then the entry
-  point's zeroing, scatter, and scatter without its atomics, each alone;
+  random flow of +-4 px at (96, 512, 432): the old kernel, the entry point
+  (the strip kernel), the first design and the float-atomic strip
+  kernel; then the entry point's zeroing, largest |g|, scatter and writing,
+  each alone;
 - K4's backward at the DIS-MF train step's shapes (S = 16, M = 48, 32
   channels, at 256x216 and 128x108, summed) in bfloat16 and float32: the
-  old kernel, the scalar scatter, the vector scatter with 1 and 2 vectors a
-  thread of 1, 2, 4 and 8 pixels in source-major order and some of them in
-  table order; then the chosen path's zeroing, scatter and cast, each
-  alone.
+  old kernel, the entry point (summed by destination, 4 channels a
+  thread), one channel a thread and the float-atomic vector scatter;
+  then the entry point's passes (the call cut after each, and the sums
+  alone).
 
 The yardstick (F.grid_sample or its backward; for K4 grid_sample's backward
 on the gathered stack) is timed once; K1 has none. Prints one line a measurement, the card's
@@ -80,11 +79,11 @@ OLD_SOURCES = {
                              "dis_error_string")),
     "k3": ("warp2d.cu", ("dis_warp2d_fwd", "dis_warp2d_bwd")),
     "k4": ("warp2d_pairs.cu", ("dis_warp2d_pairs_fwd",
-                               "dis_warp2d_pairs_bwd")),
+                               "dis_warp2d_pairs_bwd",
+                               "dis_warp2d_pairs_bwd_work")),
 }
-# dis_ab_warp2d_pairs_bwd's parts: each alone, or all (the whole call)
-PARTS = {"zeroing": 1, "scatter": 2, "cast": 4}
-ALL = 7
+# the passes of K3's backward (dis_ab_warp2d_bwd's parts), each alone
+PARTS = {"zeroing": 1, "largest |g|": 2, "scatter": 4, "writing": 8}
 
 
 def build_ab(old_csrc: Path, kernels, sections) -> ctypes.CDLL:
@@ -101,6 +100,8 @@ def build_ab(old_csrc: Path, kernels, sections) -> ctypes.CDLL:
     for path, name, extra in jobs:
         digest.update(name.encode() + " ".join(extra).encode())
         digest.update(path.read_bytes())
+    for name in kernels.HEADERS:
+        digest.update((kernels.CSRC / name).read_bytes())
     so = ROOT / "build" / "ab" / digest.hexdigest()[:16] / "libab.so"
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
@@ -127,11 +128,11 @@ def build_ab(old_csrc: Path, kernels, sections) -> ctypes.CDLL:
     if "k3" in sections:
         lib.dis_old_warp2d_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
                                            i32, ptr]
-        lib.dis_old_warp2d_bwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
-                                           ptr]
+        lib.dis_old_warp2d_bwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     if "k4" in sections:
-        lib.dis_old_warp2d_pairs_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32,
-                                                 i32, i32, i32, i32, i32, ptr]
+        lib.dis_old_warp2d_pairs_bwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.dis_old_warp2d_pairs_bwd_work.argtypes = [i32] * 4
+        lib.dis_old_warp2d_pairs_bwd_work.restype = ctypes.c_longlong
     return lib
 
 
@@ -233,7 +234,7 @@ def k1(lib, dev) -> dict:
 
 
 def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
-    """K3's forward, old and every new variant, at the main paths' calls."""
+    """K3's forward, old and new, at the main paths' calls."""
     import torch
     import torch.nn.functional as F
     from depthinspace_tpu_torch.losses.geometric import _ordered_directions
@@ -268,11 +269,7 @@ def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
                                          ref.data_ptr())
         add("old", lib.dis_old_warp2d_fwd, chosen)
         add("first design", lib.dis_warp2d_fwd, 0)
-        for ppt, staged in (((1, 0), (2, 0), (4, 0)) if C == 1
-                            else ((1, 0), (1, 1))):
-            add(f"vector, {ppt} px a thread" if C == 1 else
-                f"vector, {'staged' if staged else 'direct'} stores",
-                lib.dis_ab_warp2d_fwd, ppt, staged)
+        add(f"entry point, {chosen} px a thread", lib.dis_warp2d_fwd, chosen)
         for f in variants.values():
             f()
         torch.cuda.synchronize()
@@ -302,8 +299,8 @@ def k3_forward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
 
 
 def k3_backward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
-    """K3's backward (C = 1), old and every new variant, at the SF and MF
-    train steps' calls, on their rigid flows and on a random one."""
+    """K3's backward (C = 1), old and new, at the SF and MF train steps'
+    calls, on their rigid flows and on a random one."""
     import torch
     from depthinspace_tpu_torch.losses.geometric import _ordered_directions
     from depthinspace_tpu_torch.ops.resample import warp2d_bwd_plain
@@ -326,21 +323,22 @@ def k3_backward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
                             device=dev)
         ref = warp2d_bwd_plain(flow, g)
         grad = torch.empty_like(g)
-        args = (flow.data_ptr(), g.data_ptr(), grad.data_ptr(), M, h, w, 1)
+        acc = kernels.fixed_scratch(g.numel(), dev)
         chosen = kernels.warp2d_bwd_path(1, h, w, flow.data_ptr())
-        def ab(path, rows, parts=3):
-            return lambda: call(lib.dis_ab_warp2d_bwd, *args, path, rows,
-                                parts)
+        c = kernels.fixed_bits(h * w)
+        args = (flow.data_ptr(), g.data_ptr(), grad.data_ptr(),
+                acc.data_ptr(), M, h, w, 1)
+
+        def ab(path, atomic=0, parts=15):
+            return lambda: call(lib.dis_ab_warp2d_bwd, *args, path, c,
+                                atomic, parts)
 
         variants = {
-            "old": lambda: call(lib.dis_old_warp2d_bwd, *args),
-            "first design": ab(0, 0),
-            "entry point": lambda: call(lib.dis_warp2d_bwd, *args, chosen),
-            "tile, float4 flush, 1 row a warp": ab(2, 1),
-            "tile, float4 flush, 2 rows a warp": ab(2, 2),
-            "tile, scalar flush, 2 rows a warp": ab(3, 2)}
-        for rows in (1, 2, 4, 8):
-            variants[f"strip, {rows} rows a lane"] = ab(1, rows)
+            "old": lambda: call(lib.dis_old_warp2d_bwd, *args, chosen, c),
+            "entry point": lambda: call(lib.dis_warp2d_bwd, *args, chosen,
+                                        c),
+            "first design": ab(0),
+            "strip kernel, float atomics": ab(1, atomic=1)}
         errs = {}
         for name, f in variants.items():
             grad.fill_(float("nan"))
@@ -351,13 +349,9 @@ def k3_backward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
                 raise RuntimeError(f"K3 bwd {label} {name} differs from the "
                                    f"plain version: {errs[name]}")
         times = in_turns(variants)
-        # the entry point's parts, each alone: the zeroing, the scatter, and
-        # the scatter without its atomics (its loads and arithmetic)
-        for part, bits in (("zeroing", 1), ("scatter", 2),
-                           ("scatter without atomics", 6),
-                           ("scatter's loads", 10)):
-            times[f"strip, {part} alone"] = [chip_smoke.cuda_ms(ab(1, 4,
-                                                                   bits))]
+        for part, bits in PARTS.items():
+            times[f"entry point, {part} alone"] = [chip_smoke.cuda_ms(
+                ab(chosen, parts=bits))]
         u = torch.arange(w, dtype=torch.float32, device=dev)
         v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
         grid = chip_smoke.grid_of(flow[..., 0] + u, flow[..., 1] + v)
@@ -374,12 +368,12 @@ def k3_backward(lib, kernels, dev, sf_flow, mf_flow) -> dict:
                   + (f" (max|kernel-plain| {errs[name]:.3g})"
                      if name in errs else ""))
         print(f"[ab] {key}: chosen path {chosen}; bound {bound:.4f} ms")
-        del g, ref, grad, grid, g_n, img_n, variants
+        del g, ref, grad, acc, grid, g_n, img_n, variants
     return result
 
 
 def k4_backward(lib, kernels, dev, mf_flow) -> dict:
-    """K4's backward, old and every new variant, at the DIS-MF shapes."""
+    """K4's backward, old and new, at the DIS-MF shapes."""
     import torch
     from depthinspace_tpu_torch.models.fusenet import (_pair_flows,
                                                        _pair_list,
@@ -392,7 +386,6 @@ def k4_backward(lib, kernels, dev, mf_flow) -> dict:
                 for n in range(tracks))
     S, M, C = TL * tracks, len(src), 32
     table = kernels._src_table("ab", src, S, M, dev)
-    identity = torch.arange(M, dtype=torch.int32, device=dev)
     rng = np.random.RandomState(12)
     result = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -403,47 +396,53 @@ def k4_backward(lib, kernels, dev, mf_flow) -> dict:
             g = torch.as_tensor(rng.randn(M, h, w, C).astype(np.float32),
                                 device=dev).to(dt)
             ref = warp2d_pairs_bwd_plain(pf, src, g, S).float()
-            scratch = torch.empty((S, h, w, C), device=dev)
+            # this checkout's workspace, the older one's and float atomics' float32
+            # scratch in one
+            work = torch.empty(max(
+                kernels.pairs_bwd_work(S, M, h, w, dev).numel(),
+                lib.dis_old_warp2d_pairs_bwd_work(S, M, h, w) // 8,
+                (S * h * w * C + 1) // 2), dtype=torch.int64, device=dev)
             grad = torch.empty((S, h, w, C), dtype=dt, device=dev)
-            # the wrapper's vector scatter: 1 vector a thread, 8 pixels
-            chosen = (1, 8) if kernels.pairs_bwd_path(
-                C, dt, g.data_ptr(), pf.data_ptr(), scratch.data_ptr()) \
-                else (0, 0)
-            grad_ptr = grad.data_ptr() if bf16 else None
+            vector = int(kernels.pairs_bwd_path(C, dt, g.data_ptr()))
             common = (pf.data_ptr(), table[0].data_ptr())
-            variants = {"old": lambda: call(
-                lib.dis_old_warp2d_pairs_bwd, *common, g.data_ptr(),
-                scratch.data_ptr(), grad_ptr, S, M, h, w, C, bf16)}
+            sizes = (S, M, h, w, C, bf16, vector)
 
-            def new(path, order, parts=ALL):
+            def new(vec=vector, atomic=0, parts=31):
                 return lambda: call(lib.dis_ab_warp2d_pairs_bwd, *common,
-                                    order.data_ptr(), g.data_ptr(),
-                                    scratch.data_ptr(), grad_ptr, S, M, h, w,
-                                    C, bf16, *path, parts)
+                                    table[1].data_ptr(), g.data_ptr(),
+                                    work.data_ptr(), grad.data_ptr(),
+                                    *sizes[:-1], vec, atomic, parts)
 
-            variants["scalar"] = new((0, 0), table[1])
-            for vpt in (1, 2):
-                for px in (1, 2, 4, 8):
-                    variants[f"vpt {vpt} px {px}"] = new((vpt, px), table[1])
-            for vpt, px in sorted({(1, 1), (2, 1), chosen}):
-                variants[f"vpt {vpt} px {px}, table order"] = new(
-                    (vpt, px), identity)
+            variants = {
+                "old": lambda: call(lib.dis_old_warp2d_pairs_bwd, *common,
+                                    g.data_ptr(), work.data_ptr(),
+                                    grad.data_ptr(), *sizes),
+                "entry point": lambda: call(lib.dis_warp2d_pairs_bwd,
+                                            *common, g.data_ptr(),
+                                            work.data_ptr(), grad.data_ptr(),
+                                            *sizes),
+                "one channel a thread": new(vec=0),
+                "vector scatter, float atomics": new(atomic=1)}
             for name, f in variants.items():
-                scratch.fill_(float("nan"))
+                work.fill_(-1)
                 grad.fill_(float("nan"))
                 f()
                 torch.cuda.synchronize()
-                if not within(grad if bf16 else scratch, ref, bf16):
+                # float atomics' float32 result is their scratch
+                out = grad if bf16 or "atomics" not in name else \
+                    work.view(torch.float32)[:grad.numel()].view(grad.shape)
+                if not within(out, ref, bf16):
                     raise RuntimeError(f"K4 bwd {dt} {h}x{w} {name} differs "
                                        "from the plain version")
             times = in_turns(variants)
-            # the chosen path's parts, each alone (the scatter adds onto
-            # the scratch as it stands: the time does not depend on it)
-            for part, bit in PARTS.items():
-                if part == "cast" and not bf16:
-                    continue
-                times[f"chosen {part} alone"] = [chip_smoke.cuda_ms(
-                    new(chosen, table[1], bit))]
+            # the passes: the call cut after each (every cut starts from the
+            # zeroing, so the counts stay valid), and the sums alone
+            cut = {p: chip_smoke.cuda_ms(new(parts=p)) for p in (1, 3, 7, 15)}
+            for part, t in (("zeroing", cut[1]), ("count", cut[3] - cut[1]),
+                            ("scan", cut[7] - cut[3]),
+                            ("place", cut[15] - cut[7]),
+                            ("sum", chip_smoke.cuda_ms(new(parts=16)))):
+                times[f"entry point, {part}"] = [t]
             srcs = torch.as_tensor(src, device=dev)
             stacked = torch.zeros((S, C, h, w), dtype=dt,
                                   device=dev).index_select(0, srcs)
@@ -458,11 +457,11 @@ def k4_backward(lib, kernels, dev, mf_flow) -> dict:
             for name, t in times.items():
                 print(f"[ab] warp2d_pairs_bwd {dt} {h}x{w}x{C}: {name} "
                       f"{[round(x, 4) for x in t]} ms")
-                acc = total.setdefault(name, [0.0] * len(t))
-                total[name] = [a + b for a, b in zip(acc, t)]
-            del g, ref, scratch, grad, variants, stacked, grid, g_nchw
+                got = total.setdefault(name, [0.0] * len(t))
+                total[name] = [a + b for a, b in zip(got, t)]
+            del g, ref, work, grad, variants, stacked, grid, g_nchw
         result[f"warp2d_pairs_bwd {dt} (both scales)"] = dict(
-            total, chosen_vpt_px=list(chosen))
+            total, vector=bool(vector))
         for name, t in total.items():
             print(f"[ab] warp2d_pairs_bwd {dt} both scales: {name} "
                   f"{[round(x, 4) for x in t]} ms")

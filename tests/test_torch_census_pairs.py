@@ -20,10 +20,10 @@ import jax.numpy as jnp
 import torch
 
 from depthinspace_tpu.ops.census import census_sad as jax_census_sad
-from depthinspace_tpu_torch.ops.census import (_pad_edge,
-                                               _unpad_edge_adjoint,
+from depthinspace_tpu_torch.ops.census import (_unpad_edge_adjoint,
                                                census_sad_bwd_plain,
                                                census_sad_plain)
+from depthinspace_tpu_torch.ops.sampling import pad_edge
 
 RADIUS = 4
 EPS = 0.5
@@ -82,7 +82,7 @@ def _pair_mirror(es, ta, g=None, eps=EPS):
 def _padded_mirror(es, ta, g=None, eps=EPS):
     """The kernels' form: the pairs of the edge-padded plane, no counts."""
     P = RADIUS
-    es_p, ta_p = _pad_edge(es, P), _pad_edge(ta, P)
+    es_p, ta_p = pad_edge(es, P), pad_edge(ta, P)
     g_p = None if g is None else torch.nn.functional.pad(g, (P, P, P, P))
     Hp, Wp = es_p.shape[1:]
     acc = torch.zeros_like(es_p)

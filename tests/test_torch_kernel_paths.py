@@ -94,25 +94,25 @@ def test_warp2d_fwd_path_by_size():
     (torch.bfloat16, 12, True), (torch.bfloat16, 32, True),
     (torch.float32, 4, True), (torch.float32, 8, True),
     (torch.float32, 12, True), (torch.float32, 32, True),
-    (torch.float32, 1024, True),
-    # not a whole 4-channel vector, or more than 256 threads a pixel
+    (torch.float32, 1024, True), (torch.float32, 1028, True),
+    (torch.bfloat16, 2056, True),
+    # not a whole 4-channel vector
     (torch.bfloat16, 1, False), (torch.bfloat16, 5, False),
     (torch.bfloat16, 6, False), (torch.float32, 1, False),
-    (torch.float32, 5, False), (torch.float32, 6, False),
-    (torch.float32, 1028, False), (torch.bfloat16, 2056, False)])
+    (torch.float32, 5, False), (torch.float32, 6, False)])
 def test_pairs_bwd_path_by_channels_and_type(dtype, C, vector):
-    assert kernels.pairs_bwd_path(C, dtype, 512, 1024, 2048) is vector
+    assert kernels.pairs_bwd_path(C, dtype, 512) is vector
 
 
-@pytest.mark.parametrize("g,flow,scratch,f32,bf16", [
-    (0, 0, 0, True, True), (16, 8, 32, True, True),
+@pytest.mark.parametrize("g,f32,bf16", [
+    (0, True, True), (16, True, True),
     # bfloat16 g needs 8 bytes (4 channels), float32 16
-    (8, 0, 0, False, True), (24, 8, 16, False, True),
-    (2, 0, 0, False, False), (4, 0, 0, False, False),
-    (0, 4, 0, False, False), (0, 0, 8, False, False)])
-def test_pairs_bwd_path_by_alignment(g, flow, scratch, f32, bf16):
+    (8, False, True), (24, False, True),
+    (2, False, False), (4, False, False),
+    (12, False, False), (32, True, True)])
+def test_pairs_bwd_path_by_alignment(g, f32, bf16):
     for dtype, vector in ((torch.float32, f32), (torch.bfloat16, bf16)):
-        assert kernels.pairs_bwd_path(32, dtype, g, flow, scratch) is vector
+        assert kernels.pairs_bwd_path(32, dtype, g) is vector
 
 
 class _Recorder:
@@ -130,6 +130,9 @@ class _Recorder:
     def __getattr__(self, name):
         return name
 
+    def dis_warp2d_pairs_bwd_work(self, S, M, H, W):
+        return 64
+
 
 def test_pairs_bwd_launches_in_the_cached_source_major_order(monkeypatch):
     rec = _Recorder(monkeypatch)
@@ -142,13 +145,15 @@ def test_pairs_bwd_launches_in_the_cached_source_major_order(monkeypatch):
         name, fn, args = rec.calls[-1]
         table = kernels._src_table("test", src, S, M, torch.device("cpu"))
         assert (name, fn) == ("warp2d_pairs_bwd", "dis_warp2d_pairs_bwd")
-        # flow, src, order, g, scratch, grad, S, M, H, W, C, bf16, vector
+        # flow, src, g, work, grad, S, M, H, W, C, bf16, vector: the cached
+        # table's sources (the backward sums by destination, in no order;
+        # the table keeps the forward's source-major order)
         assert args[1] == table[0].data_ptr()
-        assert args[2] == table[1].data_ptr()
+        assert args[2] == g.data_ptr()
         assert tuple(table[1].tolist()) == kernels.source_major_order(src)
-        assert args[6:12] == (S, M, 5, 7, C, int(dtype == torch.bfloat16))
-        assert kernels.pairs_bwd_path(C, dtype, args[3], args[0], args[4])
-        assert args[12:] == (1,)
+        assert args[5:11] == (S, M, 5, 7, C, int(dtype == torch.bfloat16))
+        assert kernels.pairs_bwd_path(C, dtype, args[2])
+        assert args[11:] == (1,)
 
 
 @pytest.mark.parametrize("C", [1, 3, 5, 11])
@@ -175,10 +180,13 @@ def test_warp2d_bwd_launches_the_chosen_path(monkeypatch, C, W):
         grad = fn(flow, g)
         got, lib_fn, args = rec.calls[-1]
         assert (got, lib_fn) == (name, "dis_warp2d_bwd")
-        # flow, g, grad, M, H, W, C, path
+        # flow, g, grad, acc, M, H, W, C, path, c
         assert args[:3] == (flow.data_ptr(), g.data_ptr(), grad.data_ptr())
-        assert args[3:7] == (2, 9, W, C)
-        assert args[7:] == (kernels.warp2d_bwd_path(C, 9, W, args[0]),)
+        assert args[4:8] == (2, 9, W, C)
+        # a cell of a plane receives at most one term from each of its
+        # 9 * W pixels
+        assert args[8:] == (kernels.warp2d_bwd_path(C, 9, W, args[0]),
+                            kernels.fixed_bits(9 * W))
 
 
 def _track_table(tl: int, N: int) -> tuple:

@@ -321,7 +321,8 @@ def test_warp2d_bwd_kernel_matches_plain(cuda, shape, C, max_flow, path):
     torch.cuda.synchronize()
     assert kernels.launches["warp2d_bwd"] == before["warp2d_bwd"] + 1
     assert kernels.launches["warp2d_v1_bwd"] == before["warp2d_v1_bwd"] + 1
-    # float atomics: sums of 3+ contributions in a varying order
+    # the plain version's float32 sums in its order against the kernel's
+    # exact sum rounded once
     ref = warp2d_bwd_plain(flow, g)
     torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(grad_v1, ref, rtol=0, atol=1e-5)
@@ -409,14 +410,119 @@ def test_warp2d_bwd_every_path_matches_plain(cuda, kind, C, path):
         flow = _rough_flow(kind, shape, 65)
     flow = flow.to(cuda).contiguous()
     g = _randn(shape + (C,), 66, cuda)
-    grad = torch.full_like(g, float("nan"))
-    err = kernels.library().dis_warp2d_bwd(
-        flow.data_ptr(), g.data_ptr(), grad.data_ptr(), *shape, C, path,
-        torch.cuda.current_stream().cuda_stream)
-    assert err == 0
-    torch.cuda.synchronize()
+    grad = _k3_bwd(flow, g, path)
     ref = warp2d_bwd_plain(flow.nan_to_num(nan=1e9), g)
     torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
+
+
+def _k3_bwd(flow, g, path):
+    """dis_warp2d_bwd with the given path (0: the first design, 1: the
+    strip kernel) into a NaN-filled grad, so that an element the kernel
+    does not write shows."""
+    M, H, W, C = g.shape
+    grad = torch.full_like(g, float("nan"))
+    acc = kernels.fixed_scratch(g.numel(), g.device)
+    _call(kernels.library().dis_warp2d_bwd, flow.data_ptr(), g.data_ptr(),
+          grad.data_ptr(), acc.data_ptr(), M, H, W, C, path,
+          kernels.fixed_bits(H * W))
+    torch.cuda.synchronize()
+    return grad
+
+
+def _converging_flow(shape, seed):
+    """A flow that sends every pixel into the 2x2 block of cells at (10, 7)
+    (jittered within it): each of those cells receives a term from every
+    pixel, the most contention a scatter can meet."""
+    M, H, W = shape
+    rng = np.random.RandomState(seed)
+    v, u = np.mgrid[0:H, 0:W].astype(np.float32)
+    flow = np.empty((M, H, W, 2), np.float32)
+    flow[..., 0] = 10.0 + rng.uniform(0.0, 1.0, (M, H, W)) - u
+    flow[..., 1] = 7.0 + rng.uniform(0.0, 1.0, (M, H, W)) - v
+    return torch.from_numpy(flow)
+
+
+def _wide_g(shape, seed):
+    """g of either sign with magnitudes log-uniform over 1e-8 .. 1e3."""
+    rng = np.random.RandomState(seed)
+    mag = 10.0 ** rng.uniform(-8.0, 3.0, shape)
+    sign = np.where(rng.rand(*shape) < 0.5, -1.0, 1.0)
+    return torch.from_numpy((sign * mag).astype(np.float32))
+
+
+def _test_flow(kind, shape, seed):
+    if kind == "converging":
+        return _converging_flow(shape, seed)
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.uniform(-20.0, 20.0, (*shape, 2))
+                            .astype(np.float32))
+
+
+def _test_g(kind, shape, seed):
+    return _wide_g(shape, seed) if kind == "wide" else torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32))
+
+
+def _assert_near_exact(grad, exact, magnitude, dtype):
+    """Within 1e-5 of each cell's sum of |terms| (``magnitude``) of the
+    exact sum of the float32 terms (the plain version in float64), and for
+    bfloat16 also one rounding to bfloat16 (2^-8 of the value)."""
+    lim = 1e-5 * magnitude + 1e-30
+    if dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -8 * exact.abs()
+    assert bool(((grad.double() - exact).abs() <= lim).all())
+
+
+# K3's (and K5's) backward on each path, C = 1 and 3 (the strip kernel or
+# the first design) and C = 9 (the first design only), on a random flow
+# and a flow that converges into one 2x2 block, with g ~ N(0, 1) and g of
+# magnitudes 1e-8 .. 1e3: three calls on one input give the same bits,
+# within 1e-5 relative of the exact sum of the plain version's terms
+@pytest.mark.parametrize("g_kind", ["normal", "wide"])
+@pytest.mark.parametrize("flow_kind", ["random", "converging"])
+@pytest.mark.parametrize("path,C", [(1, 1), (1, 3), (0, 1), (0, 3), (0, 9)])
+def test_warp2d_bwd_repeats_bit_for_bit(cuda, path, C, flow_kind, g_kind):
+    shape = (2, 37, 70)
+    flow = _test_flow(flow_kind, shape, 70).to(cuda)
+    g = _test_g(g_kind, shape + (C,), 71).to(cuda)
+    first = _k3_bwd(flow, g, path)
+    for _ in range(2):
+        assert torch.equal(_k3_bwd(flow, g, path), first)
+    exact = warp2d_bwd_plain(flow, g.double())
+    magnitude = warp2d_bwd_plain(flow, g.double().abs())
+    _assert_near_exact(first, exact, magnitude, torch.float32)
+    # the wrappers take the strip kernel here; K5's runs K3's kernels
+    if path == 1:
+        assert torch.equal(kernels.warp2d_bwd(flow, g), first)
+        assert torch.equal(kernels.warp2d_v1_bwd(flow, g), first)
+
+
+# K4's backward, float32 and bfloat16, 4 channels a thread (C = 32) and
+# one (C = 5), the same flows and g
+@pytest.mark.parametrize("g_kind", ["normal", "wide"])
+@pytest.mark.parametrize("flow_kind", ["random", "converging"])
+@pytest.mark.parametrize("C", [32, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp2d_pairs_bwd_repeats_bit_for_bit(cuda, dtype, C, flow_kind,
+                                               g_kind):
+    src = (2, 0, 1, 2, 0, 1)
+    S, H, W = 3, 37, 70
+    flow = _test_flow(flow_kind, (len(src), H, W), 72).to(cuda)
+    g = _test_g(g_kind, (len(src), H, W, C), 73).to(cuda).to(dtype)
+    assert kernels.pairs_bwd_path(C, dtype, g.data_ptr()) == (C == 32)
+    first = kernels.warp2d_pairs_bwd(flow, src, g, S)
+    for _ in range(2):
+        assert torch.equal(kernels.warp2d_pairs_bwd(flow, src, g, S), first)
+    # the plain version's float32 terms (warp2d_bwd_plain with the float32
+    # flow) summed into their planes in float64
+    index = torch.as_tensor(src, device=cuda)
+
+    def exact_sum(gd):
+        out = torch.zeros((S, H, W, C), dtype=torch.float64, device=cuda)
+        return out.index_add_(0, index, warp2d_bwd_plain(flow, gd))
+
+    _assert_near_exact(first, exact_sum(g.double()),
+                       exact_sum(g.double().abs()), dtype)
 
 
 def test_warp2d_bwd_unaligned_flow_takes_the_first_design(cuda):
@@ -502,10 +608,11 @@ def test_warp2d_pairs_kernels_match_plain(cuda, shape, src, dtype):
     # as the plain version: exact
     torch.testing.assert_close(out, warp2d_pairs_plain(feat, flow, src),
                                rtol=0, atol=0)
-    # the backward: float atomics sum the pairs' terms in a varying order
-    # (float32: 1e-5 at |g| ~ 1); bfloat16 rounds that float32 sum once,
-    # so a neighbour of the plain version's value (one bf16 ulp, 2^-8
-    # relative, on either side: rtol 2^-6)
+    # the backward: the plain version sums the pairs' terms in float32 in
+    # its order, the kernel exactly and rounds once (float32: 1e-5 at
+    # |g| ~ 1); bfloat16 rounds the float32 sum once, so a neighbour of the
+    # plain version's value (one bf16 ulp, 2^-8 relative, on either side:
+    # rtol 2^-6)
     ref = warp2d_pairs_bwd_plain(flow, src, g, feat.shape[0])
     if dtype == torch.float32:
         torch.testing.assert_close(grad, ref, rtol=0, atol=1e-5)
@@ -568,31 +675,28 @@ def _assert_pairs_grad(grad, ref, dtype):
 def test_warp2d_pairs_vector_backward_within_tolerance(cuda, dtype, C, src):
     _, flow, src, g = _pair_inputs(cuda, (3, 21, 19, C), src, dtype, 47)
     S, M, H, W = 3, len(src), 21, 19
-    scratch = torch.empty((S, H, W, C), device=cuda)
-    assert kernels.pairs_bwd_path(C, dtype, g.data_ptr(), flow.data_ptr(),
-                                  scratch.data_ptr())
+    assert kernels.pairs_bwd_path(C, dtype, g.data_ptr())
     ref = warp2d_pairs_bwd_plain(flow, src, g, S)
     before = kernels.launches["warp2d_pairs_bwd"]
     grad = kernels.warp2d_pairs_bwd(flow, src, g, S)
     torch.cuda.synchronize()
     assert kernels.launches["warp2d_pairs_bwd"] == before + 1
     _assert_pairs_grad(grad, ref, dtype)
-    # the vector scatter in source-major and in table order (the result
-    # does not depend on the order); 21x19 planes leave groups of 8 pixels
-    # that straddle rows and planes
+    # through the library into a NaN-filled grad and a workspace of
+    # garbage: every element written, the wrapper's bits, twice
     table = kernels._src_table("test", src, S, M, cuda)
-    identity = torch.arange(M, dtype=torch.int32, device=cuda)
     bf16 = dtype == torch.bfloat16
-    for order in (table[1], identity):
+    for _ in range(2):
         out = torch.full((S, H, W, C), float("nan"), dtype=dtype,
                          device=cuda)
-        scratch.fill_(float("nan"))
+        work = kernels.pairs_bwd_work(S, M, H, W, cuda)
+        work.fill_(-1)
         _call(kernels.library().dis_warp2d_pairs_bwd, flow.data_ptr(),
-              table[0].data_ptr(), order.data_ptr(), g.data_ptr(),
-              scratch.data_ptr(), out.data_ptr() if bf16 else None, S, M, H,
-              W, C, int(bf16), 1)
+              table[0].data_ptr(), g.data_ptr(), work.data_ptr(),
+              out.data_ptr(), S, M, H, W, C, int(bf16), 1)
         torch.cuda.synchronize()
-        _assert_pairs_grad(out if bf16 else scratch, ref, dtype)
+        _assert_pairs_grad(out, ref, dtype)
+        assert torch.equal(out, grad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -606,8 +710,7 @@ def test_warp2d_pairs_scalar_backward_within_tolerance(cuda, dtype):
                                        dtype, 48)
         if move is not None:
             g = move(g)
-        assert not kernels.pairs_bwd_path(shape[-1], dtype, g.data_ptr(),
-                                          flow.data_ptr(), 0)
+        assert not kernels.pairs_bwd_path(shape[-1], dtype, g.data_ptr())
         grad = kernels.warp2d_pairs_bwd(flow, src, g, shape[0])
         torch.cuda.synchronize()
         _assert_pairs_grad(grad, warp2d_pairs_bwd_plain(flow, src, g,
